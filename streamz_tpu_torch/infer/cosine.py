@@ -1,0 +1,101 @@
+"""Cosine-similarity centroid matching with the reference's adaptive gate.
+
+The port of ``streamz_tpu/infer/cosine.py`` as far as ``--identify`` needs:
+
+- ``cosine_matrix_many``: cosine of many embeddings vs many centroids, zero
+  when either norm is zero (``streamz-rs/src/lib.rs:1532-1541``);
+- ``identify_sims_cosine``: the adaptive per-speaker gate of
+  ``identify_speaker_cosine_feats`` (``src/lib.rs:1634-1661``) on a
+  precomputed similarity row — reject ``sim < mean_sim - 2*std_sim``; accept
+  when ``sim > 0.35`` and (``sim > mean_sim + std_sim*f`` or ``sim > 0.5``)
+  with ``f = 0.3`` under 200 speakers else 1.0; the winner must also beat the
+  caller's threshold;
+- ``compute_speaker_embeddings`` (``src/lib.rs:1555-1599``): per-speaker
+  centroid = normalized mean of per-file median embeddings, plus mean/std
+  of the files' cosine to it, for checkpoints saved without embeddings.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from streamz_tpu_torch.dsp.features import load_cached_features
+from streamz_tpu_torch.infer.embed import batch_median_embeddings, normalize
+from streamz_tpu_torch.nn.model import SpeakerNet
+
+SpeakerStats = Tuple[np.ndarray, float, float]  # (mean, mean_sim, std_sim)
+
+
+def cosine_matrix_many(embs: np.ndarray, centroids: np.ndarray) -> np.ndarray:
+    """Cosine of many embeddings vs many centroids, zero-norm safe. [n, s]"""
+    embs = np.asarray(embs, np.float32)
+    centroids = np.asarray(centroids, np.float32)
+    ne = np.sqrt((embs * embs).sum(axis=1))          # [n]
+    nc = np.sqrt((centroids * centroids).sum(axis=1))  # [s]
+    dots = embs @ centroids.T                        # [n, s]
+    denom = ne[:, None] * nc[None, :]
+    return np.where(denom > 0.0, dots / np.where(denom == 0.0, 1.0, denom), 0.0)
+
+
+def identify_sims_cosine(
+    sims: np.ndarray,
+    speaker_embeds: Sequence[SpeakerStats],
+    threshold: float,
+):
+    """The adaptive gate on a precomputed ``[n_speakers]`` cosine row.
+    Returns the speaker id, or None for "unknown"."""
+    if not speaker_embeds:
+        return None
+    sims = np.asarray(sims, np.float32)
+    mean_sims = np.array([m for _, m, _ in speaker_embeds], np.float32)
+    std_sims = np.array([s for _, _, s in speaker_embeds], np.float32)
+
+    factor = 0.3 if len(speaker_embeds) < 200 else 1.0
+    not_rejected = sims >= (mean_sims - 2.0 * std_sims)
+    dynamic = mean_sims + std_sims * factor
+    accepted = (sims > 0.35) & ((sims > dynamic) | (sims > 0.5)) & not_rejected
+
+    # The reference loop's exact semantics: float64 compare against the
+    # threshold, strict greater-than, first index wins ties.
+    cand = np.flatnonzero(accepted & (sims.astype(np.float64) > threshold))
+    if cand.size == 0:
+        return None
+    return int(cand[np.argmax(sims[cand])])
+
+
+def compute_speaker_embeddings(net: SpeakerNet, extractor) -> List[SpeakerStats]:
+    """Per-speaker (mean, mean_sim, std_sim) from the feature cache
+    (src/lib.rs:1555-1599): each listed file's windows are loaded from
+    ``feature_cache/`` or computed with ``extractor`` and cached; a file
+    that fails to load is skipped.  One stats entry per live class; a class
+    without files gets a zero centroid."""
+    per_speaker_wins: List[List[np.ndarray]] = []
+    file_lists: List[List[str]] = list(net.file_lists[: net.output_size()])
+    file_lists += [[] for _ in range(net.output_size() - len(file_lists))]
+    for files in file_lists:
+        wins_list: List[np.ndarray] = []
+        for path in files:
+            try:
+                wins_list.append(load_cached_features(path, extractor))
+            except Exception:
+                # The reference skips a file it cannot load (src/lib.rs:1569).
+                continue
+        per_speaker_wins.append(wins_list)
+
+    flat = [w for wins in per_speaker_wins for w in wins]
+    it = iter(batch_median_embeddings(net, flat))
+
+    out: List[SpeakerStats] = []
+    for wins_list in per_speaker_wins:
+        embeds = [next(it) for _ in wins_list]
+        if not embeds:
+            out.append((np.zeros((net.embedding_size(),), np.float32), 0.0, 0.0))
+            continue
+        mean = normalize(np.mean(embeds, axis=0))
+        sims = cosine_matrix_many(np.stack(embeds), mean[None, :])[:, 0]
+        mean_sim = float(sims.mean())
+        std_sim = float(np.sqrt(((sims - mean_sim) ** 2).mean()))
+        out.append((mean, mean_sim, std_sim))
+    return out

@@ -1,0 +1,110 @@
+"""Host-side audio ingest: extension dispatch, downmix, resample, caching.
+
+The port's copy of the ``streamz_tpu/io/audio.py`` contracts that the
+``--identify`` slice needs:
+
+- ``load_and_resample_file`` (``streamz-rs/src/lib.rs:509-538``)
+- ``load_audio_samples`` with the ``cache/<stem>.wav`` MP3 cache
+  (``src/lib.rs:448-488``)
+- ``batch_resample`` parallel loader that silently drops failures
+  (``src/lib.rs:541-547``), on a Python thread pool
+- feature cache path scheme (``src/lib.rs:550-579``)
+
+The JAX package also has a C++ batch-ingest runtime for ``batch_resample``,
+bit-identical to the thread-pool path; it is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from streamz_tpu_torch import config
+from streamz_tpu_torch.dsp.resample import resample_to_44100
+from streamz_tpu_torch.io import mp3 as mp3io
+from streamz_tpu_torch.io import wav as wavio
+
+
+def downmix_to_mono(samples: np.ndarray, channels: int) -> np.ndarray:
+    """Average interleaved channels → mono i16 (src/lib.rs:172-183).
+
+    The reference divides an i32 sum by the channel count with Rust integer
+    division, which truncates toward zero — reproduced via trunc.
+    """
+    samples = np.asarray(samples, np.int16)
+    if channels <= 1:
+        return samples.copy()
+    n = (len(samples) // channels) * channels
+    frames = samples[:n].astype(np.int32).reshape(-1, channels)
+    tail = samples[n:]
+    mixed = np.trunc(frames.sum(axis=1) / channels).astype(np.int16)
+    if len(tail):  # Rust chunks() yields the ragged tail too
+        mixed = np.concatenate([mixed, np.trunc(
+            tail.astype(np.int32).sum(keepdims=True) / len(tail)).astype(np.int16)])
+    return mixed
+
+
+def load_and_resample_file(path: str) -> Tuple[str, np.ndarray]:
+    """Decode → downmix → resample to 44.1 kHz (src/lib.rs:509-538)."""
+    ext = Path(path).suffix.lower()
+    if ext == ".wav":
+        samples, rate, channels = wavio.read_wav(path)
+    elif ext == ".mp3":
+        samples, rate, channels = mp3io.load_mp3_samples(path)
+    else:
+        raise ValueError(f"Unsupported format: {path}")
+    mono = downmix_to_mono(samples, channels)
+    return path, resample_to_44100(mono, rate)
+
+
+def load_audio_samples(path: str) -> np.ndarray:
+    """Extension-dispatched load with the MP3→WAV cache (src/lib.rs:448-488).
+
+    Preserved quirk: the cache key is the STEM only, so same-named MP3s in
+    different directories share one cache entry — first writer wins."""
+    if path.lower().endswith(".mp3"):
+        cached = Path(config.WAV_CACHE_DIR) / f"{Path(path).stem}.wav"
+        if cached.exists():
+            return load_and_resample_file(str(cached))[1]
+        _, resampled = load_and_resample_file(path)
+        if config.wav_cache_enabled():
+            os.makedirs(config.WAV_CACHE_DIR, exist_ok=True)
+            wavio.write_wav(str(cached), resampled)
+        return resampled
+    return load_and_resample_file(path)[1]
+
+
+def batch_resample(
+    paths: List[str], max_workers: Optional[int] = None
+) -> List[Tuple[str, np.ndarray]]:
+    """Load+resample many files on a thread pool, dropping failures silently
+    (src/lib.rs:541-547)."""
+
+    def _safe(p: str):
+        try:
+            return load_and_resample_file(p)
+        except Exception:
+            # The reference drops unreadable files without a word; the
+            # caller reports every path missing from the result.
+            return None
+
+    workers = max_workers or min(32, (os.cpu_count() or 4))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        results = list(pool.map(_safe, paths))
+    return [r for r in results if r is not None]
+
+
+def feature_cache_path(path: str) -> Path:
+    """``feature_cache/<path with slashes as underscores>.npy``.
+
+    Preserved quirk: same-stem files in different directories collide
+    only when the *full* path matches after separator replacement.  The
+    directory is (re)made on every call: a caller may delete it mid-process.
+    """
+    os.makedirs(config.FEATURE_CACHE_DIR, exist_ok=True)
+    sanitized = path.replace("/", "_").replace("\\", "_")
+    return Path(config.FEATURE_CACHE_DIR) / f"{sanitized}.npy"

@@ -1,0 +1,216 @@
+"""The speaker-ID MLP in PyTorch, with the JAX package's capacity layout.
+
+The port of ``streamz_tpu/nn/model.py`` as far as ``--identify`` and the
+vote pipeline need it.  Reference architecture
+(``streamz-rs/src/lib.rs:744-790``): ``w1`` (in x h1, ReLU) -> ``w2``
+(h1 x h2, tanh) -> ``w3`` (h2 x out, softmax), instantiated 60x512x256xS.
+
+``w3``/``b3`` are allocated at a *capacity* that is a multiple of 128 and a
+``num_speakers`` count masks the inactive columns, exactly as in the JAX
+package, so both packages hold the same parameters.  Weights keep the JAX
+layout (``x @ w1``, ``w1`` is [in, h1]), not ``nn.Linear``'s [out, in].
+
+Both embedding heads of the reference are kept:
+
+- ``embed`` = tanh(h2)  (``src/lib.rs:895-900``)
+- ``forward_embedding`` = ReLU(h2)  (``src/lib.rs:1073-1079``), the one
+  the identification path pools.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from streamz_tpu_torch import config
+from streamz_tpu_torch.device import resolve_device
+
+Params = Mapping[str, torch.Tensor]
+PARAM_NAMES = ("w1", "b1", "w2", "b2", "w3", "b3")
+
+# Large negative logit used to mask inactive softmax columns.  Finite (not
+# -inf) so that exp() underflows cleanly to 0.0 without NaN risk.
+MASK_LOGIT = -1e30
+
+_CAPACITY_ALIGN = 128
+
+
+def round_capacity(n: int) -> int:
+    """Round a class count up to the 128-aligned capacity."""
+    n = max(int(n), 1)
+    return ((n + _CAPACITY_ALIGN - 1) // _CAPACITY_ALIGN) * _CAPACITY_ALIGN
+
+
+def _uniform(rng: np.random.Generator, shape) -> np.ndarray:
+    # Reference init: U(-0.5, 0.5) (src/lib.rs:770).
+    return rng.uniform(-0.5, 0.5, size=shape).astype(np.float32)
+
+
+def init_params(
+    input_size: int,
+    hidden1: int,
+    hidden2: int,
+    output: int,
+    *,
+    capacity: Optional[int] = None,
+    seed: int = 0,
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """Fresh f32 parameters on ``device``, drawn in the JAX package's order
+    from ``np.random.default_rng(seed)``, so both packages start from the
+    same bits (src/lib.rs:767-790)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    cap = round_capacity(capacity if capacity is not None else output)
+    params = {
+        "w1": _uniform(rng, (input_size, hidden1)),
+        "b1": np.zeros((hidden1,), np.float32),
+        "w2": _uniform(rng, (hidden1, hidden2)),
+        "b2": np.zeros((hidden2,), np.float32),
+        "w3": _uniform(rng, (hidden2, cap)),
+        "b3": np.zeros((cap,), np.float32),
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in params.items()}
+
+
+def class_mask(capacity: int, num_speakers: int, device=None) -> torch.Tensor:
+    """[capacity] float mask: 1.0 for live columns, 0.0 for inactive."""
+    return (torch.arange(capacity, device=device) < num_speakers).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Plain forward functions on a parameter mapping.  The three products are
+# plain large matmuls (outside any Pallas kernel in the JAX package too).
+# ---------------------------------------------------------------------------
+
+
+def hidden_tanh(params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shared trunk: returns (h1=relu, h2=tanh). x: [..., in]."""
+    h1 = torch.relu(x @ params["w1"] + params["b1"])
+    h2 = torch.tanh(h1 @ params["w2"] + params["b2"])
+    return h1, h2
+
+
+def forward_logits(params: Params, x: torch.Tensor, num_speakers: int) -> torch.Tensor:
+    """Masked logits over the full capacity. x: [..., in] -> [..., capacity]."""
+    _, h2 = hidden_tanh(params, x)
+    logits = h2 @ params["w3"] + params["b3"]
+    mask = torch.arange(logits.shape[-1], device=logits.device) < num_speakers
+    return torch.where(mask, logits, torch.full((), MASK_LOGIT, device=logits.device))
+
+
+def forward(params: Params, x: torch.Tensor, num_speakers: int) -> torch.Tensor:
+    """Softmax probabilities over live classes (src/lib.rs:880-891).
+
+    Returns [..., capacity]; inactive columns are exactly 0.0, also when
+    ``num_speakers == 0``, where the all-``MASK_LOGIT`` softmax would
+    otherwise be a uniform 1/capacity row.
+    """
+    probs = torch.softmax(forward_logits(params, x, num_speakers), dim=-1)
+    return probs * class_mask(probs.shape[-1], num_speakers, probs.device)
+
+
+def embed(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """tanh-h2 embedding head (src/lib.rs:895-900)."""
+    return hidden_tanh(params, x)[1]
+
+
+def forward_embedding(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """ReLU-h2 embedding head (src/lib.rs:1073-1079), the variant the
+    identification path pools."""
+    h1 = torch.relu(x @ params["w1"] + params["b1"])
+    return torch.relu(h1 @ params["w2"] + params["b2"])
+
+
+class SpeakerMLP(nn.Module):
+    """The six parameter tensors as an ``nn.Module``; ``forward`` gives the
+    masked softmax probabilities."""
+
+    def __init__(self, params: Params):
+        super().__init__()
+        for name in PARAM_NAMES:
+            self.register_parameter(
+                name, nn.Parameter(params[name].to(torch.float32), requires_grad=False)
+            )
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in PARAM_NAMES}
+
+    def forward(self, x: torch.Tensor, num_speakers: int) -> torch.Tensor:
+        return forward(self.params(), x, num_speakers)
+
+
+@dataclasses.dataclass
+class SpeakerNet:
+    """The MLP plus the metadata ``model.npz`` carries (the reference
+    ``SimpleNeuralNet`` fields, ``src/lib.rs:744-762``): per-speaker
+    ``file_lists``, dataset specs, stored speaker embeddings
+    ``(mean, mean_sim, std_sim)`` and the optional ``w4/b4`` layer."""
+
+    mlp: SpeakerMLP
+    num_speakers: int
+    file_lists: List[List[str]]
+    sample_rate: int = config.DEFAULT_SAMPLE_RATE
+    bits: int = 16
+    embeddings: List[Tuple[np.ndarray, float, float]] = dataclasses.field(
+        default_factory=list
+    )
+    w4: Optional[np.ndarray] = None
+    b4: Optional[np.ndarray] = None
+
+    @classmethod
+    def new(
+        cls,
+        input_size: int = config.FEATURE_SIZE,
+        hidden1: int = config.HIDDEN1,
+        hidden2: int = config.HIDDEN2,
+        output: int = 1,
+        *,
+        seed: int = 0,
+        device=None,
+    ) -> "SpeakerNet":
+        params = init_params(input_size, hidden1, hidden2, output, seed=seed,
+                             device=device)
+        return cls(
+            mlp=SpeakerMLP(params),
+            num_speakers=output,
+            file_lists=[[] for _ in range(output)],
+        )
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return self.mlp.params()
+
+    @property
+    def device(self) -> torch.device:
+        return self.mlp.w1.device
+
+    @property
+    def capacity(self) -> int:
+        return int(self.mlp.w3.shape[1])
+
+    def output_size(self) -> int:
+        return self.num_speakers
+
+    def embedding_size(self) -> int:
+        return int(self.mlp.w2.shape[1])
+
+    def set_embeddings(self, embeds: List[Tuple[np.ndarray, float, float]]) -> None:
+        self.embeddings = embeds
+
+    def output_layer(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Live (unpadded) softmax layer (src/lib.rs:850-852)."""
+        w3 = self.mlp.w3.detach().cpu().numpy()[:, : self.num_speakers]
+        b3 = self.mlp.b3.detach().cpu().numpy()[: self.num_speakers]
+        return w3, b3
+
+    def forward(self, x) -> np.ndarray:
+        """Softmax over the *live* classes only, shape [..., num_speakers]."""
+        with torch.inference_mode():
+            xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
+            out = self.mlp(xt, self.num_speakers).cpu().numpy()
+        return out[..., : self.num_speakers]

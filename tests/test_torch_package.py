@@ -1,0 +1,121 @@
+"""Package rules of the PyTorch/CUDA port (streamz_tpu_torch).
+
+It imports neither ``jax`` nor anything of ``streamz_tpu``; its entry points
+run on CUDA unless the CPU is asked for, and never fall back quietly; the
+kernel source names the TPU kernel it replaces.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "streamz_tpu_torch"
+MODULES = sorted(PKG.rglob("*.py"))
+
+
+def _imported_names(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "streamz_tpu")
+
+
+@pytest.mark.parametrize("path", MODULES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_module_imports_no_jax_and_no_reference_package(path):
+    bad = [n for n in _imported_names(path) if _forbidden(n)]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_importing_every_module_loads_no_jax():
+    """A fresh interpreter imports every port module; jax and streamz_tpu
+    stay out of sys.modules."""
+    mods = [
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).replace(".__init__", "")
+        for p in MODULES
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'streamz_tpu'))\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=str(ROOT), env=env, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_auto_frontend_on_cpu_uses_plain_path():
+    from streamz_tpu_torch.dsp import mfcc, mfcc_kernel
+
+    pcm = torch.from_numpy(
+        np.random.default_rng(0).normal(0, 0.1, (2, 4000)).astype(np.float32))
+    before = mfcc_kernel.mfcc_base_v4.launches
+    np.testing.assert_array_equal(
+        mfcc_kernel.mfcc_base_v4(pcm).numpy(), mfcc.mfcc_base(pcm).numpy())
+    assert mfcc_kernel.mfcc_base_v4.launches == before
+
+
+def test_cuda_request_without_card_raises(monkeypatch):
+    """Entry points default to CUDA and raise without a card instead of
+    running on the CPU."""
+    from streamz_tpu_torch.device import resolve_device
+    from streamz_tpu_torch.dsp import mfcc
+    from streamz_tpu_torch.dsp.features import FeatureExtractor
+    from streamz_tpu_torch.nn import checkpoint, model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (
+        lambda: resolve_device(None),
+        lambda: resolve_device("cuda"),
+        lambda: FeatureExtractor(),
+        lambda: mfcc.extract_features_batch([np.zeros(2000, np.int16)]),
+        lambda: model.init_params(60, 8, 4, 1),
+        lambda: checkpoint.load(str(ROOT / "tests" / "fixtures" / "golden_model.npz")),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert resolve_device("cpu").type == "cpu"
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_kernel_wrapper_rejects_bad_input():
+    from streamz_tpu_torch.dsp import mfcc_kernel
+
+    with pytest.raises(ValueError):
+        mfcc_kernel.mfcc_base_v4(torch.zeros((2, 4000), device="meta"))
+
+
+def test_kernel_source_names_what_it_replaces():
+    from streamz_tpu_torch.dsp import mfcc_kernel
+
+    src = mfcc_kernel.SOURCE
+    assert src == PKG / "csrc" / "mfcc_base.cu" and src.exists()
+    text = src.read_text(encoding="utf-8")
+    assert "streamz_tpu/dsp/pallas_mfcc.py:_mfcc_kernel_v4" in text
+    assert "__global__" in text and 'extern "C"' in text
+    assert "arch=compute_90a,code=sm_90a" in " ".join(mfcc_kernel.NVCC_FLAGS)
+    for lib in ("cublas", "cudnn", "cufft"):
+        assert lib not in text.lower()
+    assert mfcc_kernel.BUILD_DIR == PKG / "_build"
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "streamz_tpu_torch/_build/" in ignored
