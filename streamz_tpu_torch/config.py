@@ -1,14 +1,14 @@
 """Global configuration constants for the PyTorch/CUDA port of StreamZ.
 
 The same numerology, model widths, file names and cache toggles as
-``streamz_tpu/config.py`` so that feature windows, model shapes and file
-formats stay interchangeable between the two packages.  Only what the
-``--identify`` slice reads is here; training knobs arrive with the
-training slice.
+``streamz_tpu/config.py`` so that feature windows, model shapes, file
+formats and training runs stay interchangeable between the two packages.
+The steganography constants arrive with the ``stego`` slice.
 
 - sample rate / window / mel / MFCC numerology: reference
   ``streamz-rs/src/lib.rs:25-36`` (hop = WINDOW_SIZE/2 at ``src/lib.rs:288``)
 - model widths: ``src/main.rs:640``, ``:649``
+- training knobs: ``src/main.rs:21-37``
 """
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ WITH_DELTAS: bool = True
 FEATURE_SIZE: int = MFCC_SIZE * 3 if WITH_DELTAS else MFCC_SIZE  # 60
 N_FFT_BINS: int = WINDOW_SIZE // 2 + 1  # 401 one-sided power bins
 
+# Default dropout probability applied during training (src/lib.rs:36).
+DEFAULT_DROPOUT: float = 0.2
+
 # ---------------------------------------------------------------------------
 # Model architecture (src/main.rs:640, :649)
 # ---------------------------------------------------------------------------
@@ -34,10 +37,21 @@ HIDDEN1: int = 512
 HIDDEN2: int = 256  # == embedding size
 
 # ---------------------------------------------------------------------------
-# CLI defaults (src/main.rs:21-37)
+# CLI / training defaults (src/main.rs:21-37)
 # ---------------------------------------------------------------------------
 MODEL_PATH: str = "model.npz"
+TRAIN_FILE_LIST: str = "train_files.txt"
+TARGET_FILE_LIST: str = "target_files.txt"
 DEFAULT_CONF_THRESHOLD: float = 0.8
+DEFAULT_BURN_IN_FRAC: float = 0.2
+TRAIN_EPOCHS: int = 100
+BATCH_SIZE: int = 8
+INCREMENTAL_EPOCHS: int = 5  # src/main.rs:810
+# Learning-rate schedule of the discovery loop (src/main.rs:802): 0.05 for
+# the first 1000 processed files, then 0.01.
+LR_EARLY: float = 0.05
+LR_LATE: float = 0.01
+LR_SWITCH_COUNT: int = 1000
 
 # Cache directories (src/lib.rs:450, :551)
 WAV_CACHE_DIR: str = "cache"

@@ -2,10 +2,10 @@
 
 Replaces ``streamz_tpu/dsp/pallas_mfcc.py:_mfcc_kernel_v4`` (through
 ``_v4_call`` / ``mfcc_base_pallas_v4``).  The kernel source is
-``streamz_tpu_torch/csrc/mfcc_base.cu``; this module builds it with ``nvcc``
-for ``sm_90a`` at first use into ``streamz_tpu_torch/_build/`` (one library
-per source, flags and ``nvcc`` version), loads its plain C entry point with ``ctypes`` and
-launches it on PyTorch's current stream.
+``streamz_tpu_torch/csrc/mfcc_base.cu``; :mod:`streamz_tpu_torch._cuda_build`
+builds it with ``nvcc`` for ``sm_90a`` at first use into
+``streamz_tpu_torch/_build/`` and loads its plain C entry point with
+``ctypes``; it is launched on PyTorch's current stream.
 
 :func:`mfcc_base_v4` takes a [B, T] f32 PCM batch and returns the base
 MFCCs [B, T//400 - 1, 20].  A CUDA tensor launches the kernel or raises; a
@@ -17,48 +17,24 @@ kernel to run there.  ``mfcc_base_v4.launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 from functools import lru_cache
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from streamz_tpu_torch import config
+from streamz_tpu_torch import _cuda_build, config
 from streamz_tpu_torch.dsp import mel as melmod
 from streamz_tpu_torch.dsp import mfcc
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "mfcc_base.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCE = _cuda_build.source("mfcc_base")
+BUILD_DIR = _cuda_build.BUILD_DIR
+NVCC_FLAGS = _cuda_build.NVCC_FLAGS
 
 _GROUP_BINS = 64  # must match kGroupBins in the .cu source
 _GROUPS = 7       # must match kGroups
 
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
 build_log = ""
-
-
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found: K1 is compiled from csrc/ at first use; "
-            "set CUDA_HOME to the CUDA toolkit"
-        )
-    return found
 
 
 def build() -> Path:
@@ -66,43 +42,21 @@ def build() -> Path:
     source, these flags and this ``nvcc`` exists.  The compiler's report
     (registers, shared memory, spills) is kept in :data:`build_log`."""
     global build_log
-    nvcc = _nvcc()
-    version = subprocess.run(
-        [nvcc, "--version"], capture_output=True, text=True, check=True
-    ).stdout
-    key = hashlib.sha256(SOURCE.read_bytes())
-    key.update("\0".join((*NVCC_FLAGS, version)).encode())
-    lib = BUILD_DIR / f"libmfcc_base_{key.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, lib)
+    lib = _cuda_build.build("mfcc_base")
+    build_log = _cuda_build.build_logs.get("mfcc_base", build_log)
     return lib
 
 
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.streamz_mfcc_base_v4.argtypes = [p, i64, i64, p, p, p, p, p, p, p, p]
+    lib.streamz_mfcc_base_v4.restype = ctypes.c_int
+    lib.streamz_mfcc_base_v4_smem_bytes.argtypes = []
+    lib.streamz_mfcc_base_v4_smem_bytes.restype = ctypes.c_int
+
+
 def _library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i64 = ctypes.c_void_p, ctypes.c_longlong
-            lib.streamz_mfcc_base_v4.argtypes = [
-                p, i64, i64, p, p, p, p, p, p, p, p,
-            ]
-            lib.streamz_mfcc_base_v4.restype = ctypes.c_int
-            lib.streamz_mfcc_base_v4_smem_bytes.argtypes = []
-            lib.streamz_mfcc_base_v4_smem_bytes.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+    return _cuda_build.load("mfcc_base", _declare)
 
 
 def smem_bytes() -> int:

@@ -1,9 +1,13 @@
 """Cosine-similarity centroid matching with the reference's adaptive gate.
 
-The port of ``streamz_tpu/infer/cosine.py`` as far as ``--identify`` needs:
+The port of ``streamz_tpu/infer/cosine.py`` as far as ``--identify`` and
+the default training run need:
 
 - ``cosine_matrix_many``: cosine of many embeddings vs many centroids, zero
   when either norm is zero (``streamz-rs/src/lib.rs:1532-1541``);
+- ``identify_speaker_from_embedding`` (``src/lib.rs:1499-1529``): best
+  centroid by cosine, the threshold relaxed to ``0.7 * threshold`` under 20
+  speakers, ``None`` for "new speaker";
 - ``identify_sims_cosine``: the adaptive per-speaker gate of
   ``identify_speaker_cosine_feats`` (``src/lib.rs:1634-1661``) on a
   precomputed similarity row — reject ``sim < mean_sim - 2*std_sim``; accept
@@ -12,17 +16,18 @@ The port of ``streamz_tpu/infer/cosine.py`` as far as ``--identify`` needs:
   caller's threshold;
 - ``compute_speaker_embeddings`` (``src/lib.rs:1555-1599``): per-speaker
   centroid = normalized mean of per-file median embeddings, plus mean/std
-  of the files' cosine to it, for checkpoints saved without embeddings.
+  of the files' cosine to it.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from streamz_tpu_torch.dsp.features import load_cached_features
+from streamz_tpu_torch.dsp.features import load_cached_features, save_cached_features
 from streamz_tpu_torch.infer.embed import batch_median_embeddings, normalize
+from streamz_tpu_torch.io import audio
 from streamz_tpu_torch.nn.model import SpeakerNet
 
 SpeakerStats = Tuple[np.ndarray, float, float]  # (mean, mean_sim, std_sim)
@@ -37,6 +42,25 @@ def cosine_matrix_many(embs: np.ndarray, centroids: np.ndarray) -> np.ndarray:
     dots = embs @ centroids.T                        # [n, s]
     denom = ne[:, None] * nc[None, :]
     return np.where(denom > 0.0, dots / np.where(denom == 0.0, 1.0, denom), 0.0)
+
+
+def identify_speaker_from_embedding(
+    emb: np.ndarray,
+    speaker_embeddings: Dict[int, np.ndarray],
+    threshold: float,
+) -> Optional[int]:
+    """Best-centroid match with the <20-speaker relaxation (src/lib.rs:1499-1529).
+    Returns the speaker id, or ``None`` for "create a new speaker"."""
+    if not speaker_embeddings:
+        return None
+    ids = list(speaker_embeddings.keys())
+    centroids = np.stack([np.asarray(speaker_embeddings[i], np.float32) for i in ids])
+    sims = cosine_matrix_many(np.asarray(emb, np.float32)[None, :], centroids)[0]
+    best = int(np.argmax(sims))
+    dynamic_threshold = threshold * 0.7 if len(ids) < 20 else threshold
+    if float(sims[best]) > dynamic_threshold:
+        return ids[best]
+    return None
 
 
 def identify_sims_cosine(
@@ -65,11 +89,16 @@ def identify_sims_cosine(
     return int(cand[np.argmax(sims[cand])])
 
 
-def compute_speaker_embeddings(net: SpeakerNet, extractor) -> List[SpeakerStats]:
+def compute_speaker_embeddings(
+    net: SpeakerNet, extractor=None, feature_map=None
+) -> List[SpeakerStats]:
     """Per-speaker (mean, mean_sim, std_sim) from the feature cache
     (src/lib.rs:1555-1599): each listed file's windows are loaded from
     ``feature_cache/`` or computed with ``extractor`` and cached; a file
-    that fails to load is skipped.  One stats entry per live class; a class
+    that fails to load is skipped.  With ``feature_map`` (this run's
+    path → windows), an existing cache file still wins, and a missing one
+    takes the map's windows and publishes them to the cache instead of
+    decoding the file again.  One stats entry per live class; a class
     without files gets a zero centroid."""
     per_speaker_wins: List[List[np.ndarray]] = []
     file_lists: List[List[str]] = list(net.file_lists[: net.output_size()])
@@ -77,6 +106,15 @@ def compute_speaker_embeddings(net: SpeakerNet, extractor) -> List[SpeakerStats]
     for files in file_lists:
         wins_list: List[np.ndarray] = []
         for path in files:
+            if (feature_map is not None and feature_map.get(path) is not None
+                    and not audio.feature_cache_path(path).exists()):
+                wins = feature_map[path]
+                try:
+                    save_cached_features(path, wins)
+                except Exception:
+                    pass  # publishing is best-effort; the windows are in hand
+                wins_list.append(wins)
+                continue
             try:
                 wins_list.append(load_cached_features(path, extractor))
             except Exception:

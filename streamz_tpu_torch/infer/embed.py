@@ -1,10 +1,11 @@
 """Clip-level embeddings: ReLU-h2 windows pooled per clip, L2-normalized.
 
-The port of the batched pooling paths of ``streamz_tpu/infer/embed.py``:
+The port of the pooling paths of ``streamz_tpu/infer/embed.py``:
 ``batch_clip_embeddings`` mean-pools (``streamz-rs/src/lib.rs:1450-1471``)
 and ``batch_median_embeddings`` median-pools (``src/lib.rs:1474-1495``),
 both over clips bucketed by power-of-two window count and padded to a
-power-of-two clip count, one call per bucket on the net's device.
+power-of-two clip count, one call per bucket on the net's device;
+``extract_embedding_from_features`` mean-pools one clip.
 """
 
 from __future__ import annotations
@@ -109,3 +110,15 @@ def batch_median_embeddings(net: SpeakerNet, clips) -> List[np.ndarray]:
     """Median-pooled ReLU-h2 embeddings for many clips, bucketed and
     batched, each L2-normalized."""
     return _batch_pooled(net, clips, _fembed_median_batch)
+
+
+def extract_embedding_from_features(net: SpeakerNet, feats: np.ndarray) -> np.ndarray:
+    """Mean-pooled ReLU-h2 embedding of one clip, L2-normalized
+    (src/lib.rs:1450-1471)."""
+    feats = np.asarray(feats, np.float32)
+    if len(feats) == 0:
+        return np.zeros((net.embedding_size(),), np.float32)
+    with torch.inference_mode():
+        e = forward_embedding(net.params, torch.from_numpy(feats).to(net.device))
+        emb = e.mean(dim=0).cpu().numpy()
+    return normalize(emb)

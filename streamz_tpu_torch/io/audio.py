@@ -8,6 +8,9 @@ The port's copy of the ``streamz_tpu/io/audio.py`` contracts that the
   (``src/lib.rs:448-488``)
 - ``batch_resample`` parallel loader that silently drops failures
   (``src/lib.rs:541-547``), on a Python thread pool
+- ``cache_mp3_as_wav``/``precache_mp3_files``/``precache_target_files``
+  (``src/main.rs:138-214``), without the steganography checksum trigger,
+  which arrives with the ``stego`` slice
 - feature cache path scheme (``src/lib.rs:550-579``)
 
 The JAX package also has a C++ batch-ingest runtime for ``batch_resample``,
@@ -27,6 +30,11 @@ from streamz_tpu_torch import config
 from streamz_tpu_torch.dsp.resample import resample_to_44100
 from streamz_tpu_torch.io import mp3 as mp3io
 from streamz_tpu_torch.io import wav as wavio
+
+
+def i16_to_f32(samples: np.ndarray) -> np.ndarray:
+    """i16 → f32 in [-1, 1] by dividing by i16::MAX (src/lib.rs:167-169)."""
+    return np.asarray(samples, np.float32) / 32767.0
 
 
 def downmix_to_mono(samples: np.ndarray, channels: int) -> np.ndarray:
@@ -96,6 +104,44 @@ def batch_resample(
     with ThreadPoolExecutor(max_workers=workers) as pool:
         results = list(pool.map(_safe, paths))
     return [r for r in results if r is not None]
+
+
+def cache_mp3_as_wav(original: str) -> Optional[str]:
+    """Convert an MP3 to ``cache/<stem>.wav`` and return the new path
+    (src/main.rs:138-200); None when the conversion fails."""
+    if not original.lower().endswith(".mp3"):
+        return original
+    os.makedirs(config.WAV_CACHE_DIR, exist_ok=True)
+    cached = Path(config.WAV_CACHE_DIR) / f"{Path(original).stem}.wav"
+    if not cached.exists():
+        try:
+            _, samples = load_and_resample_file(original)
+            wavio.write_wav(str(cached), samples)
+        except Exception as e:
+            print(f"Failed to convert {original}: {e}")
+            if cached.exists():
+                cached.unlink()
+            return None
+    return str(cached)
+
+
+def precache_mp3_files(files: List[Tuple[str, Optional[int]]]) -> None:
+    """Rewrite MP3 entries to WAV paths in place, preferring a neighbouring
+    ``.wav`` over the cache (src/main.rs:203-214)."""
+    for i, (path, label) in enumerate(files):
+        if path.lower().endswith(".mp3"):
+            local_wav = str(Path(path).with_suffix(".wav"))
+            if os.path.exists(local_wav):
+                files[i] = (local_wav, label)
+            else:
+                new_path = cache_mp3_as_wav(path)
+                if new_path is not None:
+                    files[i] = (new_path, label)
+
+
+def precache_target_files(files: List[Tuple[str, int]]) -> None:
+    """Same as :func:`precache_mp3_files` for the eval list (src/main.rs:113-124)."""
+    precache_mp3_files(files)
 
 
 def feature_cache_path(path: str) -> Path:

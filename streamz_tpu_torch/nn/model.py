@@ -1,7 +1,7 @@
 """The speaker-ID MLP in PyTorch, with the JAX package's capacity layout.
 
-The port of ``streamz_tpu/nn/model.py`` as far as ``--identify`` and the
-vote pipeline need it.  Reference architecture
+The port of ``streamz_tpu/nn/model.py`` as far as ``--identify``, the vote
+pipeline and the default training run need it.  Reference architecture
 (``streamz-rs/src/lib.rs:744-790``): ``w1`` (in x h1, ReLU) -> ``w2``
 (h1 x h2, tanh) -> ``w3`` (h2 x out, softmax), instantiated 60x512x256xS.
 
@@ -161,6 +161,7 @@ class SpeakerNet:
     )
     w4: Optional[np.ndarray] = None
     b4: Optional[np.ndarray] = None
+    _growth_seed: int = 1_000_003
 
     @classmethod
     def new(
@@ -185,6 +186,15 @@ class SpeakerNet:
     def params(self) -> Dict[str, torch.Tensor]:
         return self.mlp.params()
 
+    @params.setter
+    def params(self, params: Params) -> None:
+        self.mlp = SpeakerMLP(params)
+
+    def working_params(self) -> Dict[str, torch.Tensor]:
+        """Contiguous copies of the parameters, for the trainers that update
+        them in place; assign them back to ``params`` when done."""
+        return {k: v.detach().clone().contiguous() for k, v in self.params.items()}
+
     @property
     def device(self) -> torch.device:
         return self.mlp.w1.device
@@ -201,6 +211,64 @@ class SpeakerNet:
 
     def set_embeddings(self, embeds: List[Tuple[np.ndarray, float, float]]) -> None:
         self.embeddings = embeds
+
+    def set_dataset_specs(self, sample_rate: int, bits: int) -> None:
+        self.sample_rate = sample_rate
+        self.bits = bits
+
+    # -- class growth (src/lib.rs:797-821), bit-identical to the JAX package --
+
+    def add_output_class(self) -> None:
+        """Expose one more softmax column, doubling capacity if exhausted."""
+        if self.num_speakers >= self.capacity:
+            self._grow_capacity(self.capacity * 2)
+        if len(self.file_lists) <= self.num_speakers:
+            self.file_lists.append([])
+        self.num_speakers += 1
+
+    def ensure_capacity(self, n: int) -> None:
+        """Grow the padded ``w3`` capacity to hold at least ``n`` classes,
+        so the discovery loop can grow classes on the device."""
+        if n > self.capacity:
+            self._grow_capacity(n)
+
+    def _grow_capacity(self, new_capacity: int) -> None:
+        """New ``w3`` columns are drawn U(-0.5, 0.5) from
+        ``default_rng(_growth_seed)``, as the JAX package draws them."""
+        new_capacity = round_capacity(new_capacity)
+        old_cap = self.capacity
+        rng = np.random.default_rng(self._growth_seed)
+        self._growth_seed += 1
+        extra = torch.from_numpy(
+            _uniform(rng, (self.embedding_size(), new_capacity - old_cap))
+        ).to(self.device)
+        p = self.params
+        w3 = torch.cat([p["w3"].detach(), extra], dim=1)
+        b3 = torch.cat([p["b3"].detach(),
+                        torch.zeros(new_capacity - old_cap, device=self.device)])
+        self.params = dict(p, w3=w3, b3=b3)
+
+    def set_output_layer(self, w3: np.ndarray, b3: np.ndarray) -> None:
+        """Replace the live softmax layer (src/lib.rs:829-833); padding
+        columns are re-drawn U(-0.5, 0.5) and the capacity never shrinks."""
+        n = int(b3.shape[0])
+        cap = round_capacity(max(n, self.capacity))
+        rng = np.random.default_rng(self._growth_seed)
+        self._growth_seed += 1
+        w3_full = _uniform(rng, (w3.shape[0], cap))
+        b3_full = np.zeros((cap,), np.float32)
+        w3_full[:, :n] = w3
+        b3_full[:n] = b3
+        self.params = dict(self.params, w3=torch.from_numpy(w3_full).to(self.device),
+                           b3=torch.from_numpy(b3_full).to(self.device))
+        self.num_speakers = n
+
+    def record_training_file(self, cls_id: int, path: str) -> None:
+        """Append a path to a speaker's file list, de-duplicated (src/lib.rs:855-862)."""
+        while len(self.file_lists) <= cls_id:
+            self.file_lists.append([])
+        if path not in self.file_lists[cls_id]:
+            self.file_lists[cls_id].append(path)
 
     def output_layer(self) -> Tuple[np.ndarray, np.ndarray]:
         """Live (unpadded) softmax layer (src/lib.rs:850-852)."""

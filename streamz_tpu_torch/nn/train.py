@@ -1,0 +1,99 @@
+"""Training steps with the reference's SGD semantics, in PyTorch.
+
+The port of ``streamz_tpu/nn/train.py`` as far as the default run needs it.
+The reference trains with a hand-written backprop whose output delta is
+exactly ``softmax(logits) - target``, including the quirk that an
+out-of-range target class gives a zero target vector
+(``streamz-rs/src/lib.rs:592-594``, ``:954-1060``).
+
+The corpus step runs K5 and the per-file trainer K6 (``train_kernels``):
+each wrapper launches its kernel for CUDA tensors, at every capacity, and
+runs its plain formulation for CPU tensors.  The plain versions are
+``train_kernels.corpus_grads_plain`` and ``train_windows_plain``.
+
+The step functions update the parameter dictionary IN PLACE and also
+return it, where the JAX package returns a new one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from streamz_tpu_torch.nn import prng
+from streamz_tpu_torch.nn.train_kernels import (
+    NumSpeakers,
+    Params,
+    _apply_step,
+    _mlp_grads,
+    _sgd,
+    corpus_grads_k5,
+    train_windows_k6,
+)
+
+
+def train_batch(params: Params, batch: torch.Tensor, target: torch.Tensor, lr,
+                num_speakers: NumSpeakers,
+                weights: Optional[torch.Tensor] = None) -> Params:
+    """One mean-gradient SGD step over a batch (src/lib.rs:1002-1060), with
+    per-row targets [B, cap]; a fully masked batch applies no update."""
+    w = torch.ones(batch.shape[0], device=batch.device) if weights is None else weights
+    grads, _, _ = _mlp_grads(params, batch, target, w, num_speakers)
+    _sgd(params, grads, w.sum(), lr)
+    return params
+
+
+def file_epoch_views(windows: torch.Tensor, n_valid, key: torch.Tensor,
+                     dropout: float, epochs: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-epoch shuffled and dropped window views and their valid masks,
+    drawn from the threefry twin exactly as the JAX package draws them from
+    ``jax.random`` (``streamz_tpu/nn/train.py:84-114``): valid windows
+    first in random order (a stable argsort, padding rows at +inf), plain
+    zeroing dropout, all-zero windows skipped.  Returns (dropped
+    [E, N_pad, F], valid [E, N_pad])."""
+    n_pad, feat = windows.shape
+    dev = windows.device
+    ekeys = prng.split(key, epochs)                 # [E, 2]
+    sub = prng.split(ekeys, 2)                      # [E, 2, 2]
+    k_perm, k_drop = sub[:, 0], sub[:, 1]
+    real = torch.arange(n_pad, device=dev) < n_valid
+    scores = torch.where(real, prng.uniform(k_perm, (n_pad,)),
+                         torch.full((), float("inf"), device=dev))
+    order = torch.argsort(scores, dim=-1, stable=True)  # [E, N_pad]
+    keep = prng.uniform(k_drop, (n_pad, feat)) >= dropout
+    dropped = torch.where(keep, windows[order], torch.zeros((), device=dev))
+    valid = real & (dropped != 0.0).any(dim=-1)
+    return dropped, valid.to(torch.float32)
+
+
+def train_on_windows_impl(params: Params, windows: torch.Tensor, n_valid,
+                          target_vec: torch.Tensor, num_speakers: NumSpeakers,
+                          key: torch.Tensor, lr: float, dropout: float, *,
+                          epochs: int, batch_size: int):
+    """``pretrain_from_features`` (src/lib.rs:582-628) on padded windows
+    [N_pad, F] of which the first ``n_valid`` are real: ``epochs`` shuffled,
+    dropped epochs, chunks of ``batch_size``, the mean gradient of each
+    chunk's surviving windows applied once per chunk.  The whole chunk loop
+    is one K6 launch on CUDA.  Returns (params, mean reported loss over the
+    processed windows, a device scalar)."""
+    n_pad, feat = windows.shape
+    n_chunks = n_pad // batch_size
+    dropped, valid = file_epoch_views(windows, n_valid, key, dropout, epochs)
+    chunks = dropped.reshape(epochs * n_chunks, batch_size, feat)
+    masks = valid.reshape(epochs * n_chunks, batch_size)
+    loss_sum, loss_cnt = train_windows_k6(params, chunks, masks, target_vec,
+                                          num_speakers, lr)
+    mean = torch.where(loss_cnt > 0, loss_sum / torch.clamp(loss_cnt, min=1.0),
+                       torch.zeros((), device=windows.device))
+    return params, mean
+
+
+def corpus_step(params: Params, batch: torch.Tensor, labels: torch.Tensor,
+                weights: torch.Tensor, num_speakers: NumSpeakers, lr):
+    """One SGD step on a large labelled batch through K5, ``p -= lr /
+    max(count, 1) * grad`` in place; returns (params, mean CE loss as a
+    device scalar)."""
+    grads, loss_sum, count = corpus_grads_k5(params, batch, labels, weights,
+                                             num_speakers)
+    return params, _apply_step(params, grads, loss_sum, count, lr)

@@ -1,0 +1,291 @@
+"""K5 and K6, the training kernels, as hand-written CUDA kernels for Hopper.
+
+- **K5** (``csrc/corpus_grads.cu``) replaces
+  ``streamz_tpu/nn/pallas_train.py:_train_kernel`` (``corpus_grads_pallas``,
+  ``corpus_step_pallas``): forward, masked softmax cross-entropy and
+  backward of a labelled batch, giving the six gradient sums, the weighted
+  loss sum and the count.  :func:`corpus_grads_k5`.
+- **K6** (``csrc/file_train.cu``) replaces ``_file_train_kernel``
+  (``train_windows_pallas``): the whole per-file chunk-SGD loop of the
+  discovery loop in one launch.  :func:`train_windows_k6`.
+
+Beside each kernel is its plain PyTorch version, :func:`corpus_grads_plain`
+and :func:`train_windows_plain` (a loop of :func:`_chunk_update`), with the
+same hand-written backward: the delta ``softmax - target`` of the surrogate
+loss ``sum_i w_i (logsumexp(logits_i) - <t_i, logits_i>)``
+(``streamz-rs/src/lib.rs:954-1060``).  A wrapper given CPU tensors runs the
+plain version, since there is no kernel there; given CUDA tensors it
+launches its kernel or raises, at every capacity.  Each wrapper counts its
+launches in ``.launches``.
+
+Parameters are dictionaries of f32 tensors in the JAX package's layout
+(``w1`` [F, H1] ... ``b3`` [capacity]).  The per-file trainers
+(``train_windows_k6`` and its plain twin) update them IN PLACE, which saves
+a copy of the parameters per step.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import Dict, Tuple, Union
+
+import torch
+
+from streamz_tpu_torch import _cuda_build
+from streamz_tpu_torch.nn.model import MASK_LOGIT, PARAM_NAMES
+
+Params = Dict[str, torch.Tensor]
+NumSpeakers = Union[int, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# The plain formulation (the CPU path, and the reference the kernels are
+# held to on the card).
+# ---------------------------------------------------------------------------
+
+
+def _mlp_grads(params: Params, x: torch.Tensor, target: torch.Tensor,
+               w: torch.Tensor, num_speakers: NumSpeakers):
+    """Gradient sums of the surrogate loss for rows ``x`` [B, F] with
+    targets [B, cap] and row weights [B]; returns (grads, per-row surrogate
+    loss [B], probs [B, cap]).  Columns >= num_speakers are masked, and
+    their delta is zeroed, as the mask's backward does."""
+    h1 = torch.relu(x @ params["w1"] + params["b1"])
+    h2 = torch.tanh(h1 @ params["w2"] + params["b2"])
+    logits = h2 @ params["w3"] + params["b3"]
+    live = torch.arange(logits.shape[-1], device=x.device) < num_speakers
+    logits = torch.where(live, logits, torch.full((), MASK_LOGIT, device=x.device))
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    se = e.sum(dim=-1, keepdim=True)
+    probs = e / se
+    per = (m + torch.log(se))[:, 0] - (target * logits).sum(dim=-1)
+    delta = (probs - target) * w[:, None] * live
+    dh2 = (delta @ params["w3"].T) * (1.0 - h2 * h2)
+    dh1 = (dh2 @ params["w2"].T) * (h1 > 0.0)
+    grads = {
+        "w1": x.T @ dh1, "b1": dh1.sum(0),
+        "w2": h1.T @ dh2, "b2": dh2.sum(0),
+        "w3": h2.T @ delta, "b3": delta.sum(0),
+    }
+    return grads, per, probs
+
+
+def _corpus_target(labels: torch.Tensor, capacity: int,
+                   num_speakers: NumSpeakers) -> torch.Tensor:
+    """one-hot(label), zeroed when the label is out of range
+    (``streamz-rs/src/lib.rs:592-594``)."""
+    cols = torch.arange(capacity, device=labels.device)
+    hot = (cols[None, :] == labels[:, None]) & (labels < num_speakers)[:, None]
+    return hot.to(torch.float32)
+
+
+def corpus_grads_plain(params: Params, batch: torch.Tensor, labels: torch.Tensor,
+                       weights: torch.Tensor, num_speakers: NumSpeakers):
+    """Summed gradients + (loss_sum, count) for one labelled batch."""
+    target = _corpus_target(labels, params["b3"].shape[0], num_speakers)
+    grads, per, _ = _mlp_grads(params, batch, target, weights, num_speakers)
+    return grads, (per * weights).sum(), weights.sum()
+
+
+def _sgd(params: Params, grads: Params, count: torch.Tensor, lr) -> None:
+    """``p -= lr / count * grad`` in place; no update when count is 0."""
+    scale = torch.where(count > 0, lr / torch.clamp(count, min=1.0),
+                        torch.zeros((), device=count.device))
+    for k in PARAM_NAMES:
+        params[k].sub_(scale * grads[k])
+
+
+def _apply_step(params: Params, grads: Params, loss_sum: torch.Tensor,
+                count: torch.Tensor, lr) -> torch.Tensor:
+    """The corpus step's update in place; returns the mean loss."""
+    _sgd(params, grads, count, lr)
+    return loss_sum / torch.clamp(count, min=1.0)
+
+
+def _chunk_update(params: Params, batch: torch.Tensor, wmask: torch.Tensor,
+                  target_vec: torch.Tensor, num_speakers: NumSpeakers, lr):
+    """One chunk of the per-file trainer, the plain twin of a K6 step: the
+    mean gradient over the chunk's surviving windows is applied in place
+    (none when no window survives), and the clamped cross-entropy report
+    ``-sum t log(max(p, 1e-12))`` rides along.  Returns (loss part, count)."""
+    tgt = target_vec.expand(batch.shape[0], -1)
+    grads, _, probs = _mlp_grads(params, batch, tgt, wmask, num_speakers)
+    report = -(tgt * torch.log(torch.clamp(probs, min=1e-12))).sum(dim=-1)
+    count = wmask.sum()
+    _sgd(params, grads, count, lr)
+    return (report * wmask).sum(), count
+
+
+def train_windows_plain(params: Params, chunks: torch.Tensor, masks: torch.Tensor,
+                        target_vec: torch.Tensor, num_speakers: NumSpeakers, lr):
+    """The per-file chunk loop: ``_chunk_update`` over chunks [S, B, F] with
+    masks [S, B], in order.  Updates ``params`` in place; returns
+    (loss_sum, loss_count)."""
+    loss_sum = torch.zeros((), device=chunks.device)
+    loss_cnt = torch.zeros((), device=chunks.device)
+    for s in range(chunks.shape[0]):
+        part, count = _chunk_update(params, chunks[s], masks[s], target_vec,
+                                    num_speakers, lr)
+        loss_sum = loss_sum + part
+        loss_cnt = loss_cnt + count
+    return loss_sum, loss_cnt
+
+
+# ---------------------------------------------------------------------------
+# The kernels.
+# ---------------------------------------------------------------------------
+
+
+def _declare_k5(lib: ctypes.CDLL) -> None:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.streamz_corpus_grads.argtypes = [
+        p, p, p, i32, p, p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p, p, p]
+    lib.streamz_corpus_grads.restype = i32
+    lib.streamz_corpus_grads_slot_size.argtypes = [i32, i32, i32, i32]
+    lib.streamz_corpus_grads_slot_size.restype = ctypes.c_longlong
+    lib.streamz_corpus_grads_tile.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
+    lib.streamz_corpus_grads_tile.restype = i32
+
+
+def _declare_k6(lib: ctypes.CDLL) -> None:
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.streamz_file_train.argtypes = [
+        p, p, i32, i32, i32, p, p, ctypes.c_float, p, p, p, p, p, p, i32, i32, i32,
+        p, p, p]
+    lib.streamz_file_train.restype = i32
+    lib.streamz_file_train_rows.argtypes = [i32]
+    lib.streamz_file_train_rows.restype = i32
+    lib.streamz_file_train_global_logits.argtypes = [i32, i32, i32, i32, i32]
+    lib.streamz_file_train_global_logits.restype = i32
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_params(params: Params, device) -> Tuple[int, int, int, int]:
+    F, H1 = params["w1"].shape
+    H2, cap = params["w3"].shape
+    shapes = {"w1": (F, H1), "b1": (H1,), "w2": (H1, H2), "b2": (H2,),
+              "w3": (H2, cap), "b3": (cap,)}
+    for k, shp in shapes.items():
+        _check(k, params[k], torch.float32, shp, device)
+    if any(d % 4 for d in (F, H1, H2, cap)):
+        raise ValueError(f"widths {(F, H1, H2, cap)} must be multiples of 4")
+    return F, H1, H2, cap
+
+
+def _ns_tensor(num_speakers: NumSpeakers, device) -> torch.Tensor:
+    """The live class count as the int32 device scalar the kernels read."""
+    if isinstance(num_speakers, torch.Tensor):
+        ns = num_speakers.reshape(()).to(device=device, dtype=torch.int32)
+        return ns.contiguous()
+    return torch.tensor(int(num_speakers), dtype=torch.int32, device=device)
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def corpus_grads_k5(params: Params, batch: torch.Tensor, labels: torch.Tensor,
+                    weights: torch.Tensor, num_speakers: NumSpeakers):
+    """K5: summed gradients + (loss_sum, count) for one labelled batch
+    (``batch`` [B, F] f32, ``labels`` [B] int32, ``weights`` [B] f32).  The
+    gradient sums are bit-reproducible on one card."""
+    if batch.device.type == "cpu":
+        return corpus_grads_plain(params, batch, labels, weights, num_speakers)
+    if batch.device.type != "cuda":
+        raise ValueError(f"K5 runs on CUDA or CPU tensors, got {batch.device}")
+    dev = batch.device
+    F, H1, H2, cap = _check_params(params, dev)
+    if batch.dim() != 2 or batch.shape[0] == 0:
+        raise ValueError(f"K5 takes a non-empty [B, {F}] batch, got {tuple(batch.shape)}")
+    B = batch.shape[0]
+    _check("batch", batch, torch.float32, (B, F), dev)
+    _check("labels", labels, torch.int32, (B,), dev)
+    _check("weights", weights, torch.float32, (B,), dev)
+    ns = _ns_tensor(num_speakers, dev)
+    lib = _cuda_build.load("corpus_grads", _declare_k5)
+    global_logits = ctypes.c_int(0)
+    tile = int(lib.streamz_corpus_grads_tile(F, H1, H2, cap, ctypes.byref(global_logits)))
+    slots = min(-(-B // tile), _sm_count(dev))
+    size = int(lib.streamz_corpus_grads_slot_size(F, H1, H2, cap))
+    part = torch.empty((slots, size), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((slots, tile, cap), dtype=torch.float32, device=dev)
+               if global_logits.value else None)
+    out = torch.empty((size,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.streamz_corpus_grads(
+            batch.data_ptr(), labels.data_ptr(), weights.data_ptr(), B, ns.data_ptr(),
+            *(params[k].data_ptr() for k in PARAM_NAMES), F, H1, H2, cap, tile,
+            slots, part.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"K5 (corpus_grads) launch failed: CUDA error {rc}")
+    corpus_grads_k5.launches += 1
+    grads, off = {}, 0  # out: [dw1 | db1 | dw2 | db2 | dw3 | db3 | loss, count, 0, 0]
+    for k in PARAM_NAMES:
+        n = params[k].numel()
+        grads[k] = out[off:off + n].view(params[k].shape)
+        off += n
+    return grads, out[off], out[off + 1]
+
+
+corpus_grads_k5.launches = 0
+
+
+def train_windows_k6(params: Params, chunks: torch.Tensor, masks: torch.Tensor,
+                     target_vec: torch.Tensor, num_speakers: NumSpeakers, lr: float):
+    """K6: the per-file chunk loop in one launch, over chunks [S, B, F] f32
+    with masks [S, B] f32, a target vector [capacity] and the live class
+    count (an int or a device scalar, which the kernel reads on the card,
+    so the caller never waits).  Updates ``params`` in place; returns
+    (loss_sum, loss_count) device scalars.  S == 0 launches nothing."""
+    if chunks.device.type == "cpu":
+        return train_windows_plain(params, chunks, masks, target_vec,
+                                   num_speakers, lr)
+    if chunks.device.type != "cuda":
+        raise ValueError(f"K6 runs on CUDA or CPU tensors, got {chunks.device}")
+    dev = chunks.device
+    F, H1, H2, cap = _check_params(params, dev)
+    if chunks.dim() != 3:
+        raise ValueError(f"K6 takes [S, B, {F}] chunks, got {tuple(chunks.shape)}")
+    S, B = chunks.shape[:2]
+    _check("chunks", chunks, torch.float32, (S, B, F), dev)
+    _check("masks", masks, torch.float32, (S, B), dev)
+    _check("target_vec", target_vec, torch.float32, (cap,), dev)
+    stats = torch.zeros((2,), dtype=torch.float32, device=dev)
+    if S == 0:
+        return stats[0], stats[1]
+    lib = _cuda_build.load("file_train", _declare_k6)
+    rows = int(lib.streamz_file_train_rows(B))
+    if rows == 0:
+        raise ValueError(f"K6 takes chunks of at most 32 windows, got {B}")
+    scratch = (torch.empty((rows, cap), dtype=torch.float32, device=dev)
+               if lib.streamz_file_train_global_logits(F, H1, H2, cap, B) else None)
+    ns = _ns_tensor(num_speakers, dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.streamz_file_train(
+            chunks.data_ptr(), masks.data_ptr(), S, B, F, target_vec.data_ptr(),
+            ns.data_ptr(), float(lr), *(params[k].data_ptr() for k in PARAM_NAMES),
+            H1, H2, cap, None if scratch is None else scratch.data_ptr(),
+            stats.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"K6 (file_train) launch failed: CUDA error {rc}")
+    train_windows_k6.launches += 1
+    return stats[0], stats[1]
+
+
+train_windows_k6.launches = 0

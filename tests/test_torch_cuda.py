@@ -70,3 +70,180 @@ def test_auto_frontend_on_card_matches_cpu(cuda_device):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K5 (corpus_grads.cu) and K6 (file_train.cu) against their plain versions.
+# ---------------------------------------------------------------------------
+
+from streamz_tpu_torch.nn import prng, train_kernels as tk  # noqa: E402
+from streamz_tpu_torch.nn.model import init_params  # noqa: E402
+from streamz_tpu_torch.nn.train import corpus_step, file_epoch_views  # noqa: E402
+
+
+def _params(capacity, device, seed=0):
+    return {k: v.contiguous() for k, v in
+            init_params(60, 512, 256, capacity, seed=seed, device=device).items()}
+
+
+def _max_rel_err(got, want):
+    """Largest |got - want| over max(1, max |want|): FP32 sums taken in
+    another order than cuBLAS's."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+def _k5_batch(B, capacity, device, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (B, 60)).astype(np.float32)).to(device)
+    # labels up to capacity + 50: some past the live classes, some past capacity
+    labels = torch.from_numpy(rng.integers(0, capacity + 50, B).astype(np.int32)).to(device)
+    w = torch.from_numpy((rng.uniform(size=B) > 0.1).astype(np.float32)).to(device)
+    return x, labels, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [128, 1024, 4096])
+@pytest.mark.parametrize("B", [4096, 777])
+def test_k5_matches_plain_on_card(cuda_device, capacity, B):
+    """Gradient sums within 1e-4 of the largest |grad| (FP32 in another
+    summation order), one launch per call, bit-identical on a rerun."""
+    params = _params(capacity, cuda_device)
+    ns = capacity - 28
+    x, labels, w = _k5_batch(B, capacity, cuda_device, seed=capacity + B)
+    before = tk.corpus_grads_k5.launches
+    g1, loss1, cnt1 = tk.corpus_grads_k5(params, x, labels, w, ns)
+    g2, loss2, _ = tk.corpus_grads_k5(params, x, labels, w, ns)
+    torch.cuda.synchronize()
+    assert tk.corpus_grads_k5.launches == before + 2
+    want, wloss, wcnt = tk.corpus_grads_plain(params, x, labels, w, ns)
+    for k in want:
+        assert _max_rel_err(g1[k], want[k]) <= 1e-4, k
+        assert torch.equal(g1[k], g2[k]), f"{k} differs between two runs"
+    assert abs(float(loss1) - float(wloss)) <= 1e-4 * abs(float(wloss))
+    assert float(loss1) == float(loss2)
+    assert float(cnt1) == float(wcnt)
+
+
+@pytest.mark.cuda
+def test_k5_zero_weights_and_no_live_class_apply_nothing(cuda_device):
+    params = _params(128, cuda_device)
+    x, labels, w = _k5_batch(1000, 128, cuda_device, seed=3)
+    for weights, ns in ((torch.zeros_like(w), 7), (w, 0)):
+        g, _, cnt = tk.corpus_grads_k5(params, x, labels, weights, ns)
+        torch.cuda.synchronize()
+        for k in g:
+            assert float(g[k].abs().max()) == 0.0, k
+    assert float(cnt) == float(w.sum())
+
+
+@pytest.mark.cuda
+def test_k5_step_updates_in_place(cuda_device):
+    params = _params(128, cuda_device)
+    ref = {k: v.clone() for k, v in params.items()}
+    x, labels, w = _k5_batch(4096, 128, cuda_device, seed=5)
+    before = tk.corpus_grads_k5.launches
+    _, loss = corpus_step(params, x, labels, w, 100, 0.01)
+    assert tk.corpus_grads_k5.launches == before + 1
+    tk._apply_step(ref, *tk.corpus_grads_plain(ref, x, labels, w, 100), 0.01)
+    for k in ref:
+        assert float((params[k] - ref[k]).abs().max()) <= 1e-5, k
+    assert torch.isfinite(loss)
+
+
+def _k6_inputs(capacity, device, n_pad=256, n_valid=200, epochs=5, seed=0):
+    rng = np.random.default_rng(seed)
+    windows = torch.from_numpy(rng.normal(0, 1, (n_pad, 60)).astype(np.float32)).to(device)
+    dropped, valid = file_epoch_views(windows, n_valid, prng.PRNGKey(seed + 1, device),
+                                      0.2, epochs)
+    chunks = dropped.reshape(-1, 8, 60).contiguous()
+    masks = valid.reshape(-1, 8).contiguous()
+    tvec = torch.zeros(capacity, device=device)
+    tvec[3] = 1.0
+    return chunks, masks, tvec
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [128, 1024, 4096])
+def test_k6_matches_plain_on_card(cuda_device, capacity):
+    """160 sequential chunk steps (5 epochs of 256 padded windows, 200 real,
+    dropout 0.2): parameters within 1e-4 and the loss within 1e-4 relative
+    of the plain loop (FP32 in another summation order, compounding over
+    the steps); one launch per file."""
+    chunks, masks, tvec = _k6_inputs(capacity, cuda_device, seed=capacity)
+    got = _params(capacity, cuda_device)
+    want = {k: v.clone() for k, v in got.items()}
+    before = tk.train_windows_k6.launches
+    loss, cnt = tk.train_windows_k6(got, chunks, masks, tvec, 9, 0.05)
+    torch.cuda.synchronize()
+    assert tk.train_windows_k6.launches == before + 1
+    wloss, wcnt = tk.train_windows_plain(want, chunks, masks, tvec, 9, 0.05)
+    for k in want:
+        assert float((got[k] - want[k]).abs().max()) <= 1e-4, k
+    assert abs(float(loss) - float(wloss)) <= 1e-4 * max(1.0, abs(float(wloss)))
+    assert float(cnt) == float(wcnt)
+
+
+@pytest.mark.cuda
+def test_k6_no_update_without_windows_or_classes(cuda_device):
+    """S == 0 launches nothing; chunks with no valid window, and ns == 0,
+    leave every parameter bit-identical."""
+    chunks, masks, tvec = _k6_inputs(128, cuda_device, seed=1)
+    params = _params(128, cuda_device)
+    ref = {k: v.clone() for k, v in params.items()}
+    before = tk.train_windows_k6.launches
+    loss, cnt = tk.train_windows_k6(params, chunks[:0], masks[:0], tvec, 9, 0.05)
+    assert tk.train_windows_k6.launches == before
+    assert float(loss) == 0.0 and float(cnt) == 0.0
+    loss, cnt = tk.train_windows_k6(params, chunks, torch.zeros_like(masks), tvec, 9, 0.05)
+    loss0, _ = tk.train_windows_k6(params, chunks, masks, tvec, 0, 0.05)
+    torch.cuda.synchronize()
+    assert tk.train_windows_k6.launches == before + 2
+    assert float(cnt) == 0.0 and float(loss) == 0.0
+    for k in ref:
+        assert torch.equal(params[k], ref[k]), k
+    assert torch.isfinite(loss0)
+
+
+@pytest.mark.cuda
+def test_training_kernels_reject_what_they_cannot_take(cuda_device):
+    params = _params(128, cuda_device)
+    x, labels, w = _k5_batch(64, 128, cuda_device, seed=2)
+    with pytest.raises(ValueError):
+        tk.corpus_grads_k5(params, x.double(), labels, w, 4)
+    with pytest.raises(ValueError):
+        tk.corpus_grads_k5(params, x, labels.long(), w, 4)
+    with pytest.raises(ValueError):
+        tk.corpus_grads_k5(params, x[:, :30], labels, w, 4)
+    chunks, masks, tvec = _k6_inputs(128, cuda_device)
+    with pytest.raises(ValueError):
+        tk.train_windows_k6(params, chunks[:, :, ::2], masks, tvec, 4, 0.05)
+    with pytest.raises(ValueError):
+        tk.train_windows_k6(params, chunks, masks, tvec[:64], 4, 0.05)
+
+
+@pytest.mark.cuda
+def test_discovery_step_never_waits_on_the_host(cuda_device):
+    """One file of the discovery loop (embed, match, decision, threefry
+    views, K6, centroid update) enqueues without a host synchronisation."""
+    from streamz_tpu_torch.app.device_loop import _file_step
+
+    params = _params(128, cuda_device)
+    state = (params, torch.tensor(3, dtype=torch.int32, device=cuda_device),
+             torch.zeros((128, 256), device=cuda_device),
+             torch.zeros(128, device=cuda_device))
+    seed_cent = torch.zeros((128, 256), device=cuda_device)
+    seed_mask = torch.zeros(128, dtype=torch.bool, device=cuda_device)
+    max_sp = torch.tensor(10, dtype=torch.int32, device=cuda_device)
+    windows = torch.zeros((256, 60), device=cuda_device)
+    windows[:200] = torch.randn((200, 60), device=cuda_device)
+    key = prng.PRNGKey(3, cuda_device)
+    torch.cuda.synchronize()
+    before = tk.train_windows_k6.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _file_step(state, windows, 200, -1, False, 0.8, 0.05, key, seed_cent,
+                         seed_mask, max_sp, 0.2, 5, 8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert tk.train_windows_k6.launches == before + 1
+    assert int(out[0]) == 3 and int(state[1]) == 4  # no centroid yet: a new class

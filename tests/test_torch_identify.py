@@ -211,11 +211,12 @@ def test_identify_all_inputs_failed(corpus, monkeypatch, capsys):
     assert "No input file could be loaded" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("args", [[], ["--eval"], ["--identify", "a.wav", "--serve"],
-                                  ["--no-cache-wav", "--identify", "a.wav"]])
+@pytest.mark.parametrize("args", [["--check-embeddings"], ["--eval"],
+                                  ["--identify", "a.wav", "--serve"],
+                                  ["--no-cache-wav", "--cluster-embeddings", "3"]])
 def test_unported_flags_return_2(tmp_path, monkeypatch, capsys, args):
-    """Anything but --identify (a bare run trains in the JAX CLI) is refused
-    before any work: rc 2 and no model is written."""
+    """The JAX CLI's modes that are not ported yet are refused before any
+    work: rc 2 and no model is written."""
     monkeypatch.chdir(tmp_path)
     assert tcli.main(args) == 2
     assert "not yet ported to streamz_tpu_torch" in capsys.readouterr().err

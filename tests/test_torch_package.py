@@ -119,3 +119,42 @@ def test_kernel_source_names_what_it_replaces():
     assert mfcc_kernel.BUILD_DIR == PKG / "_build"
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "streamz_tpu_torch/_build/" in ignored
+
+
+@pytest.mark.parametrize("name,replaces", [
+    ("corpus_grads", "streamz_tpu/nn/pallas_train.py:_train_kernel"),
+    ("file_train", "streamz_tpu/nn/pallas_train.py:_file_train_kernel"),
+])
+def test_training_kernel_sources_name_what_they_replace(name, replaces):
+    from streamz_tpu_torch import _cuda_build
+
+    text = _cuda_build.source(name).read_text(encoding="utf-8")
+    assert replaces in text
+    assert "__global__" in text and 'extern "C"' in text
+    assert "atomicAdd" not in text  # the sums run in a fixed order
+    for lib in ("cublas", "cudnn", "cutlass"):
+        assert lib not in text.lower()
+
+
+def test_training_entry_points_need_a_card_or_the_cpu(monkeypatch, tmp_path):
+    """The default run on CUDA without a card fails with rc 1 and writes
+    nothing; the kernels' wrappers take CPU tensors through their plain
+    versions without counting a launch."""
+    from streamz_tpu_torch import cli
+    from streamz_tpu_torch.nn import model, train_kernels as tk
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "train_files.txt").write_text("a.wav,0\n")
+    assert cli.main([]) == 1
+    assert not (tmp_path / "model.npz").exists()
+    params = model.init_params(60, 32, 16, 2, device="cpu")
+    before = (tk.corpus_grads_k5.launches, tk.train_windows_k6.launches)
+    tk.corpus_grads_k5(params, torch.zeros(4, 60), torch.zeros(4, dtype=torch.int32),
+                       torch.ones(4), 2)
+    tk.train_windows_k6(params, torch.zeros(1, 8, 60), torch.ones(1, 8),
+                        torch.zeros(128), 2, 0.05)
+    assert (tk.corpus_grads_k5.launches, tk.train_windows_k6.launches) == before
+    with pytest.raises(ValueError):
+        tk.corpus_grads_k5(params, torch.zeros((4, 60), device="meta"),
+                           torch.zeros(4, dtype=torch.int32), torch.ones(4), 2)
