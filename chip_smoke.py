@@ -5,11 +5,14 @@
 
 Phases (each runs uncaught: any failure exits non-zero without a result):
 
-1. Build K1, K5 and K6 (``streamz_tpu_torch/csrc/{mfcc_base,corpus_grads,
-   file_train}.cu``) with nvcc for sm_90a, one nvcc per source, at once.
-2. Hold K1 against its plain PyTorch version on the card at the launcher's
-   edge shapes, a clip shorter than one block and the main-path shape,
-   within 1e-3 on the base MFCCs.
+1. Build all seven kernels, K1-K7 (``streamz_tpu_torch/csrc/{mfcc_base,
+   mfcc_v3,mfcc_v2,mfcc_frames,corpus_grads,file_train,forward_probs}.cu``)
+   with nvcc for sm_90a, one nvcc per source, all at once.
+2. Hold the MFCC kernels K1-K4 against their plain PyTorch versions on the
+   card at the launcher's edge shapes, a clip shorter than one block and the
+   main-path shape, within 1e-3 on the base MFCCs; and each kernel
+   backend's features against ``tests/fixtures/golden_features.npy`` on the
+   golden clip, within 1e-3.
 3. Hold K5 against its plain version at the corpus training's shape
    (4096 windows, capacity 128) and a ragged batch, and at capacities 1024
    and 4096: gradient sums within 1e-4 of the largest |grad|, the loss sum
@@ -17,29 +20,47 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    against its plain version on one main-path file (a 10 s clip: 1280 chunk
    steps): parameters within 1e-3, the loss sum within 1e-3 relative, the
    count exact.
+   Then the frontend probe: ``autotune_frontend(force=True)`` with a fresh
+   cache measures K2 against K1 and keeps the winner for the run.
 4. The default training run, ``python -m streamz_tpu_torch`` (``cli.main([])``),
    at full width (60→512→256, capacity 128) on 64 seeded synthetic 10 s
    clips at 44.1 kHz of 8 synthetic speakers, 2 clips of each labelled:
-   ingest, K1, corpus training through K5 (100 epochs, batch 4096),
-   the discovery loop through K6 (one launch per processed file),
-   ``model.npz`` and the relabelled lists.  The launch counts of K1, K5 and
-   K6 are zeroed just before and read just after; each must have moved.
+   ingest, the frontend through the probe's winner, corpus training through
+   K5 (100 epochs, batch 4096), the discovery loop through K6 (one launch
+   per processed file), ``model.npz`` and the relabelled lists.  Every
+   kernel's launch count is zeroed just before and read just after; the
+   winner's, K5's and K6's must have moved.
 5. ``--identify`` (``cli.main(["--identify", ...])``) of 64 held-out clips
-   against the trained model, with K1's count zeroed and read; prints how
-   many clips it gives their own speaker.
-6. The gated vote pipeline (``identify_speaker_list_batch``) on those clips.
+   against the trained model, counts zeroed and read; prints how many clips
+   it gives their own speaker.
+6. The gated vote pipeline (``identify_speaker_list_batch``) on those clips;
+   then K7 against ``model.forward`` on their 70,464 windows (capacity 128,
+   ``num_speakers`` 0, 1, 8 and 128): within 1e-5, inactive columns exactly
+   0; then the same vote pipeline through ``FeatureExtractor`` of each
+   kernel backend (``'pallas'`` K4, ``'pallas_v2'`` K3, ``'pallas_v3'`` K2,
+   ``'pallas_v4'`` K1), counts zeroed and read for each: its kernel's count
+   must move, its features lie within 1e-3 of K1's, its vote lists equal
+   K1's wherever no window lies within 1e-3 of a vote change, and its gate
+   verdicts equal K1's wherever the gate margin exceeds twice the two
+   backends' difference in similarity (so every margin over 1e-3 too).
 7. The GPU path against the CPU path on 8 clips (features, embeddings,
    similarities, and the gate's verdicts wherever the similarities lie
    farther from a gate bound than the two paths differ).
-8. The same bare run at a reduced size (16 clips of 2 s, 4 speakers) on the
+8. The same bare run at a reduced size (12 clips of 1 s, 4 speakers) on the
    CPU (plain versions) and on the GPU (kernels): the same labels for every
    file up to the first whose decision margin is within 1e-3 of a change.
-9. Time K1, K5 and K6 per launch with CUDA events against their bounds and
-   their plain versions, and the default run by phase (ingest, features,
-   corpus, discovery, finalize) with synchronised timers.
+9. The bench twin, ``python -m streamz_tpu_torch.bench`` (``bench.run()``),
+   once, counts zeroed and read (the winner's and K7's must move); its JSON
+   line is printed.  Then time every kernel per launch with CUDA events
+   against its bound, its plain version and a library call, every frontend
+   in windows/s, and the default run by phase (ingest, features, corpus,
+   discovery, finalize) with synchronised timers.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and as its last line ``{"ok": true, "device": {...}}``.  Writes the same
+whose ``launches`` are each kernel's count in the one run of its own path
+(named in ``path``: the default run for K5, K6 and the probe's winner, the
+vote pipeline through its backend for the other MFCC kernels, the bench
+twin for K7), with every path's count beside it, and as its last line ``{"ok": true, "device": {...}}``.  Writes the same
 numbers to ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no
 result, without CUDA or outside a checkout of the repository.
 """
@@ -51,7 +72,6 @@ import io
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -62,7 +82,12 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 CSRC = HERE / "streamz_tpu_torch" / "csrc"
-SOURCES = {"mfcc_base": "K1", "corpus_grads": "K5", "file_train": "K6"}
+SOURCES = {"mfcc_base": "K1", "mfcc_v3": "K2", "mfcc_v2": "K3", "mfcc_frames": "K4",
+           "corpus_grads": "K5", "file_train": "K6", "forward_probs": "K7"}
+FIXTURES = HERE / "tests" / "fixtures"
+# The frontend backends of the kernels, by kernel id.
+BACKENDS = {"K1": "pallas_v4", "K2": "pallas_v3", "K3": "pallas_v2", "K4": "pallas"}
+KID = {b: k for k, b in BACKENDS.items()}
 
 N_SPEAKERS = 8
 CLIPS_PER_SPEAKER = 8
@@ -70,14 +95,16 @@ LABELLED_PER_SPEAKER = 2
 CLIP_SECONDS = 10
 RATE = 44_100
 SEED = 0
-K1_TOL = 1e-3          # base MFCCs: the frontend's golden gate
+K1_TOL = 1e-3          # base MFCCs (K1-K4 vs plain) and features: the golden gate
 K5_TOL = 1e-4          # gradient sums relative to the largest |grad|; loss sum relative
 K6_TOL = 1e-3          # parameters (abs) and loss sum (relative) after 1280 steps
+K7_TOL = 1e-5          # probabilities, K7 vs model.forward (both FP32)
 GPU_VS_CPU_TOL = 1e-3  # features / embeddings / sims / margins, GPU vs CPU
 # Published H100 SXM peaks (NVIDIA data sheet, dense): FP32 on the CUDA
-# cores, TF32 on the tensor cores, and HBM3 bandwidth.
+# cores, TF32 and bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 
@@ -86,32 +113,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    return out[torch.cuda.current_device()] if out else "unknown"
-
-
-def time_cuda(fn, iters: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call, from CUDA events around ``iters`` calls."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(ops: float, nbytes: float):
-    """The least time the card could take: (ms, 'operations' or 'bytes')."""
-    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+def bound(ops: float, nbytes: float, bf16_ops: float = 0.0):
+    """The least time the card could take: (ms, 'operations' or 'bytes'),
+    ``ops`` FP32 operations on the CUDA cores and ``bf16_ops`` on the
+    tensor cores."""
+    t_ops = ops / PEAK_FP32 + bf16_ops / PEAK_BF16
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -160,6 +167,60 @@ def k1_ops_and_bytes(B: int, T: int, mel_weights: int):
            + wins * 26 + 2 * wins * 26 * 20)
     nbytes = 4 * (B * T + wins * 20 + 400 * 802 + mel_weights + 3 * 26 + 26 * 20)
     return ops, nbytes
+
+
+def mfcc_tc_ops_and_bytes(B: int, T: int, mel_weights: int, mel_tc: bool):
+    """K2 (``mel_tc``) and K3 on [B, T] PCM: (FP32 operations, bf16
+    operations, bytes).  The DFT in bf16x3 is three bf16 products of the
+    [400 x 802] block DFT per block row; K2's mel stage is three bf16
+    products over the filterbank's nonzero weights, K3's one FP32 product;
+    the combine, power, log and DCT are FP32."""
+    nb = T // 400
+    rows, wins = B * nb, B * max(nb - 1, 0)
+    bf16 = 3 * 2 * rows * 400 * 802
+    f32 = wins * 401 * 7 + wins * 26 + 2 * wins * 26 * 20
+    mel = 2 * wins * mel_weights
+    if mel_tc:
+        bf16 += 3 * mel
+    else:
+        f32 += mel
+    nbytes = 4 * (B * T + wins * 20 + mel_weights + 3 * 26 + 26 * 20) + 2 * 2 * 400 * 802
+    return f32, bf16, nbytes
+
+
+def k4_formulation_ops_and_bytes(B: int, T: int, mel_weights: int):
+    """What K4's frame-major formulation does on [B, T] PCM: the [800 x 802]
+    full-window DFT per window, the power, the sparse mel product, the log
+    and the DCT.  Twice the function's work (K4 computes K1's function, so
+    its bound is K1's); printed beside the bound, not used as one."""
+    nb = T // 400
+    wins = B * max(nb - 1, 0)
+    ops = (2 * wins * 800 * 802 + wins * 401 * 3 + 2 * wins * mel_weights
+           + wins * 26 + 2 * wins * 26 * 20)
+    nbytes = 4 * (B * T + wins * 20 + 800 * 802 + mel_weights + 3 * 26 + 26 * 20)
+    return ops, nbytes
+
+
+def k7_ops_and_bytes(R: int, dims):
+    """K7 on R windows: the forward's multiply-adds (the softmax, under 1% of
+    it, not counted); x read once, the parameters read once, the
+    probabilities written once."""
+    F, H1, H2, cap = dims
+    n_params = F * H1 + H1 + H1 * H2 + H2 + H2 * cap + cap
+    return 2 * R * (F * H1 + H1 * H2 + H2 * cap), 4 * (R * F + R * cap + n_params)
+
+
+def vote_check(probs: np.ndarray, ns: int, threshold: float, tol: float):
+    """One clip's gated vote counts from its [W, cap] probabilities, and the
+    number of its windows within ``tol`` of changing their vote: best
+    probability that close to the threshold, or to the runner-up."""
+    p = probs[:, :ns]
+    top = np.sort(p, axis=1)[:, -2:] if ns > 1 else np.concatenate(
+        [np.zeros((len(p), 1), p.dtype), p], axis=1)
+    best = top[:, 1]
+    soft = int(((np.abs(best - threshold) <= tol) | (best - top[:, 0] <= tol)).sum())
+    counts = np.bincount(p.argmax(axis=1)[best >= np.float32(threshold)], minlength=ns)
+    return counts, soft
 
 
 def mlp_row_ops(F: int, H1: int, H2: int, cap: int) -> int:
@@ -240,9 +301,9 @@ def main() -> int:
         fail(f"run from a checkout of the repository ({missing} missing in {CSRC})")
     sys.path.insert(0, str(HERE))
 
-    from streamz_tpu_torch import _cuda_build, config
+    from streamz_tpu_torch import _cuda_build, bench, config
     from streamz_tpu_torch.device import resolve_device
-    from streamz_tpu_torch.dsp import mfcc, mfcc_kernel
+    from streamz_tpu_torch.dsp import features, mfcc, mfcc_kernel
     from streamz_tpu_torch.dsp.features import FeatureExtractor
     from streamz_tpu_torch.infer.cosine import cosine_matrix_many, identify_sims_cosine
     from streamz_tpu_torch.infer.embed import batch_clip_embeddings
@@ -251,24 +312,37 @@ def main() -> int:
     from streamz_tpu_torch.io.audio import batch_resample
     from streamz_tpu_torch.nn import checkpoint, drivers, prng
     from streamz_tpu_torch.nn import train_kernels as tk
-    from streamz_tpu_torch.nn.model import init_params
+    from streamz_tpu_torch.nn.forward_kernel import forward_probs_k7
+    from streamz_tpu_torch.nn.model import forward, init_params
     from streamz_tpu_torch.nn.train import file_epoch_views
+    from streamz_tpu_torch.runtime import autotune
+    from streamz_tpu_torch.runtime.measure import chain_timer
+
+    def time_ms(fn, iters: int) -> float:
+        """Milliseconds per call: CUDA events around ``iters`` calls after
+        one warm-up call."""
+        return chain_timer(fn, iters=iters, repeats=1) * 1e3
 
     dev = resolve_device("cuda")
-    card = card_line()
+    card = bench.card_line()
     kind = torch.cuda.get_device_name(0)
     report = {"card": card, "kind": kind, "torch": torch.__version__,
               "cuda": torch.version.cuda}
     print(f"device: {kind} | nvidia-smi: {card} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
     t_start = time.perf_counter()
+    marks = []  # (phase, start time): the script's seconds by phase
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
 
     # 1. Build every kernel, one nvcc per source, all at once.
+    mark("build")
     t0 = time.perf_counter()
     _cuda_build.build_all(SOURCES)
     build_s = time.perf_counter() - t0
-    print(f"[build] K1, K5, K6 built in {build_s:.2f} s; K1 uses "
-          f"{mfcc_kernel.smem_bytes()} B shared memory per block")
+    print(f"[build] K1-K7 built in {build_s:.2f} s; shared memory per block: " + ", ".join(
+        f"{k} {mfcc_kernel.smem_bytes(src)} B" for k, src in mfcc_kernel.SOURCES.items()))
     for name, log in _cuda_build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -277,6 +351,7 @@ def main() -> int:
 
     # Synthetic corpus, made on the card from the seed: 8 training and 8
     # held-out clips per speaker.
+    mark("data")
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -288,8 +363,10 @@ def main() -> int:
     print(f"[data] {len(train_pcm)} training + {len(query_pcm)} held-out clips of "
           f"{CLIP_SECONDS} s at {RATE} Hz made in {time.perf_counter() - t0:.2f} s")
 
-    # 2. K1 vs its plain version on the card.  These launches are checks,
-    # not the main path: the counts are zeroed before each path below.
+    mark("K1-K4 checks")
+    # 2. K1-K4 vs their plain versions on the card, and each kernel
+    # backend on the golden clip.  These launches are checks, not the main
+    # path: the counts are zeroed before each path below.
     n = query_pcm.shape[1]
     tlen = mfcc._bucket_len(n)
     main_batch = np.zeros((len(query_pcm), tlen), np.float32)
@@ -297,29 +374,58 @@ def main() -> int:
     main_pcm = torch.from_numpy(main_batch).to(dev)
     shapes = [(1, 800), (1, 2000), (2, 4000), (1, 208000), (3, 208000),
               (129, 1600), (513, 800), (2, 399)]
-    errs = {}
-    for B, T in shapes:
-        pcm = torch.randn((B, T), generator=gen, device=dev) * 0.1
-        got = mfcc_kernel.mfcc_base_v4(pcm)
-        want = mfcc.mfcc_base(pcm)
+    plain_base = {
+        "K1": mfcc.mfcc_base,
+        "K2": lambda x: mfcc_kernel.mfcc_base_bf16x3_plain(x, True),
+        "K3": lambda x: mfcc_kernel.mfcc_base_bf16x3_plain(x, False),
+        "K4": mfcc_kernel.mfcc_base_frames_plain,
+    }
+    # K1 draws from the run's generator as before K2-K4 existed; they draw
+    # from their own, so the data of the later phases is unchanged.
+    check_gen = torch.Generator(device=dev)
+    check_gen.manual_seed(SEED + 1)
+    mfcc_errs = {}
+    for kid, wrapper in mfcc_kernel.WRAPPERS.items():
+        errs = {}
+        for B, T in shapes:
+            g = gen if kid == "K1" else check_gen
+            pcm = torch.randn((B, T), generator=g, device=dev) * 0.1
+            got = wrapper(pcm)
+            want = plain_base[kid](pcm)
+            torch.cuda.synchronize()
+            if got.shape != want.shape:
+                fail(f"{kid} shape {tuple(got.shape)} != plain {tuple(want.shape)} at {(B, T)}")
+            errs[f"{B}x{T}"] = float((got - want).abs().max()) if got.numel() else 0.0
+        got = wrapper(main_pcm)
+        want = plain_base[kid](main_pcm)
         torch.cuda.synchronize()
-        if got.shape != want.shape:
-            fail(f"K1 shape {tuple(got.shape)} != plain {tuple(want.shape)} at {(B, T)}")
-        errs[f"{B}x{T}"] = float((got - want).abs().max()) if got.numel() else 0.0
-    got = mfcc_kernel.mfcc_base_v4(main_pcm)
-    want = mfcc.mfcc_base(main_pcm)
-    torch.cuda.synchronize()
-    if got.shape != want.shape or not torch.isfinite(got).all():
-        fail(f"K1 at the main-path shape: {tuple(got.shape)} vs {tuple(want.shape)}")
-    errs[f"{main_pcm.shape[0]}x{main_pcm.shape[1]} (main path)"] = float(
-        (got - want).abs().max())
-    del got, want
-    for k, v in errs.items():
-        print(f"[k1-vs-plain] {k}: max abs err {v:.3e} (bound {K1_TOL:g})")
-    if max(errs.values()) > K1_TOL:
-        fail(f"K1 disagrees with its plain version: {errs}")
-    report["k1_max_abs_err"] = errs
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            fail(f"{kid} at the main-path shape: {tuple(got.shape)} vs {tuple(want.shape)}")
+        errs[f"{main_pcm.shape[0]}x{main_pcm.shape[1]} (main path)"] = float(
+            (got - want).abs().max())
+        del got, want
+        print(f"[{kid.lower()}-vs-plain] max abs err by shape: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items()) + f" (bound {K1_TOL:g})")
+        if max(errs.values()) > K1_TOL:
+            fail(f"{kid} disagrees with its plain version: {errs}")
+        mfcc_errs[kid] = errs
+    golden_clip = np.load(FIXTURES / "golden_clip.npy")
+    golden = np.load(FIXTURES / "golden_features.npy")
+    golden_errs = {}
+    for kid, backend in BACKENDS.items():
+        got = FeatureExtractor(backend, device=dev).extract(golden_clip)
+        if got.shape != golden.shape:
+            fail(f"{kid} golden features shape {got.shape} != {golden.shape}")
+        golden_errs[kid] = float(np.abs(got - golden).max())
+    print("[golden] features vs golden_features.npy: " + ", ".join(
+        f"{k} ({BACKENDS[k]}) {v:.2e}" for k, v in golden_errs.items())
+        + f" (bound {K1_TOL:g})")
+    if max(golden_errs.values()) > K1_TOL:
+        fail(f"a kernel backend misses the golden features: {golden_errs}")
+    report["mfcc_max_abs_err"] = mfcc_errs
+    report["golden_max_abs_err"] = golden_errs
 
+    mark("K5/K6 checks")
     # 3. K5 and K6 vs their plain versions, on features of the labelled
     # training clips.
     extractor = FeatureExtractor(device=dev)
@@ -391,33 +497,60 @@ def main() -> int:
     report["k6_max_abs_err"] = k6_err
     report["k6_loss_err"] = k6_loss_err
 
+    mark("probe")
+    # The frontend probe, with a fresh cache, before the main path, so that
+    # no phase time below holds a probe.
+    counters = {**mfcc_kernel.WRAPPERS, "K5": tk.corpus_grads_k5,
+                "K6": tk.train_windows_k6, "K7": forward_probs_k7}
+    by_path = {}
+
+    def zero_counts():
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+
+    def read_counts(path):
+        by_path[path] = {k: c.launches for k, c in counters.items()}
+        return by_path[path]
+
+    cache_dir = tempfile.TemporaryDirectory(prefix="streamz_chip_smoke_tune_")
+    os.environ["STREAMZ_AUTOTUNE_CACHE"] = str(Path(cache_dir.name) / "autotune.json")
+    autotune.reset()
+    winner = features.autotune_frontend(force=True)
+    probe = autotune.probe_times[f"frontend:{kind}"]
+    win_kid = KID[winner]
+    print("[probe] 'auto' measured " + ", ".join(
+        f"{KID[b]} ({b}) {t / 16 * 1e3:.3f} ms" for b, t in probe.items())
+        + f" per [32, 441600] frontend call (median of 3 runs of 16): the run "
+        f"uses {winner!r} ({win_kid})")
+    if FeatureExtractor(device=dev).resolved() != winner:
+        fail("'auto' does not resolve to the probe's winner")
+    report["probe_ms_per_call"] = {b: t / 16 * 1e3 for b, t in probe.items()}
+    report["frontend"] = winner
+
     with tempfile.TemporaryDirectory(prefix="streamz_chip_smoke_") as work:
+        mark("default run")
         # 4. The main path: the default training run through the CLI.
         os.chdir(work)
         names = write_corpus(train_pcm, spk, LABELLED_PER_SPEAKER, "train")
-        counters = (mfcc_kernel.mfcc_base_v4, tk.corpus_grads_k5, tk.train_windows_k6)
-        for c in counters:
-            c.launches = 0
-        torch.cuda.synchronize()
+        zero_counts()
         t0 = time.perf_counter()
         rc, lines, run = run_cli([])
         train_s = time.perf_counter() - t0
-        launches = {"K1": mfcc_kernel.mfcc_base_v4.launches,
-                    "K5": tk.corpus_grads_k5.launches,
-                    "K6": tk.train_windows_k6.launches}
+        launches = read_counts("default run")
         phases, margins = run["phase_seconds"], run["decision_margins"]
         for ln in lines:
             if ln.startswith(("Initial", "Number", "Average", "Processed", "Computed")):
                 print(f"[train]   {ln}")
         processed = len(margins)
         print(f"[train] rc {rc}, {train_s:.2f} s, {processed} files through the "
-              f"discovery loop, launches {launches}")
+              f"discovery loop, frontend {winner!r}, launches {launches}")
         if rc != 0:
             fail(f"the default run returned {rc}")
         steps = -(-len(pool) // 4096) * config.TRAIN_EPOCHS
-        if (launches["K1"] < 1 or launches["K5"] != steps
+        if (launches[win_kid] < 1 or launches["K5"] != steps
                 or launches["K6"] != processed or processed != len(names)):
-            fail(f"the default run's launches {launches}: expected K1 >= 1, "
+            fail(f"the default run's launches {launches}: expected {win_kid} >= 1, "
                  f"K5 = {steps}, K6 = {len(names)} (one per file)")
         net = checkpoint.load(config.MODEL_PATH, device=dev)
         relabelled = filelists.load_train_files(config.TRAIN_FILE_LIST)
@@ -437,47 +570,143 @@ def main() -> int:
                        "train_phase_s": phases, "train_speakers": net.num_speakers,
                        "train_own_label": kept})
 
+        mark("--identify")
         # 5. --identify of the held-out clips against the trained model.
         query_paths = []
         for i, s in enumerate(spk):
             query_paths.append(f"query_s{s}_{i % CLIPS_PER_SPEAKER}.wav")
             wav.write_wav(query_paths[-1], query_pcm[i])
         n_windows = sum(mfcc.window_count_host(len(p)) for p in query_pcm)
-        mfcc_kernel.mfcc_base_v4.launches = 0
-        torch.cuda.synchronize()
+        zero_counts()
         t0 = time.perf_counter()
         rc, lines, _ = run_cli(["--identify", *query_paths])
         identify_s = time.perf_counter() - t0
-        identify_launches = mfcc_kernel.mfcc_base_v4.launches
+        identify_launches = read_counts("--identify")[win_kid]
         verdicts = {ln.split(":")[0]: ln for ln in lines if ".wav:" in ln}
         print(f"[identify] rc {rc}, {len(verdicts)} verdict lines for "
-              f"{len(query_paths)} clips, K1 launches {identify_launches}, "
+              f"{len(query_paths)} clips, {win_kid} launches {identify_launches}, "
               f"{identify_s:.3f} s")
         if rc != 0 or sorted(verdicts) != sorted(query_paths):
             fail(f"--identify: rc {rc}, verdicts for {len(verdicts)} clips")
         if identify_launches < 1:
-            fail("--identify never launched K1")
+            fail(f"--identify never launched {win_kid}")
         correct = sum(1 for p, s in zip(query_paths, spk)
                       if f": speaker {s} " in verdicts[p])
         unknown = sum(1 for v in verdicts.values() if ": speaker " not in v)
         print(f"[identify] {correct}/{len(query_paths)} held-out clips identified as "
               f"their own speaker, {unknown} unknown (trained model)")
 
+        mark("votes")
         # 6. The vote pipeline on the same clips.
         pcms = [pcm for _, pcm in batch_resample(query_paths)]
-        mfcc_kernel.mfcc_base_v4.launches = 0
-        torch.cuda.synchronize()
+        thr = config.DEFAULT_CONF_THRESHOLD
+        zero_counts()
         t0 = time.perf_counter()
-        lists = identify_speaker_list_batch(net, pcms, config.DEFAULT_CONF_THRESHOLD,
-                                            extractor)
+        lists = identify_speaker_list_batch(net, pcms, thr, extractor)
         vote_s = time.perf_counter() - t0
-        vote_launches = mfcc_kernel.mfcc_base_v4.launches
+        vote_launches = read_counts("votes")[win_kid]
         if len(lists) != len(pcms) or vote_launches < 1:
-            fail(f"vote pipeline: {len(lists)} lists, {vote_launches} K1 launches")
+            fail(f"vote pipeline: {len(lists)} lists, {vote_launches} {win_kid} launches")
         top_ok = sum(1 for lst, s in zip(lists, spk) if lst and lst[0] == s)
-        print(f"[votes] {len(lists)} clips, K1 launches {vote_launches}, "
+        print(f"[votes] {len(lists)} clips, {win_kid} launches {vote_launches}, "
               f"{vote_s:.3f} s, top-voted == own speaker for {top_ok}")
 
+        mark("K7 check")
+        # K7 against model.forward on the identify batch: every window of
+        # the 64 held-out clips, through the trained model, whose softmax is
+        # mostly saturated, and through the bench's fresh seeded model,
+        # whose is not.
+        qfeats = extractor.extract_batch(pcms)
+        k7_x = torch.from_numpy(np.concatenate(qfeats)).to(dev)
+        k7_errs = {}
+        for label, k7_net in (("trained", net), ("fresh", bench.make_net(dev))):
+            for ns in (0, 1, N_SPEAKERS, k7_net.capacity):
+                got = forward_probs_k7(k7_net.params, k7_x, ns)
+                want = forward(k7_net.params, k7_x, ns)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or not bool((got[:, ns:] == 0.0).all()):
+                    fail(f"K7 at num_speakers {ns}: shape {tuple(got.shape)}, or a "
+                         "column at or past num_speakers is not exactly 0")
+                k7_errs[f"{label} ns={ns}"] = float((got - want).abs().max())
+            unsaturated = float(((want > 1e-6) & (want < 1 - 1e-6)).any(dim=1).float().mean())
+            print(f"[k7-vs-forward] {label} model: {unsaturated:.1%} of the windows "
+                  "have a probability strictly between 0 and 1 (within 1e-6)")
+        print(f"[k7-vs-forward] {k7_x.shape[0]} windows, capacity {net.capacity}: max "
+              "abs err " + ", ".join(f"{k} {v:.2e}" for k, v in k7_errs.items())
+              + f" (bound {K7_TOL:g}); inactive columns exactly 0")
+        if max(k7_errs.values()) > K7_TOL:
+            fail(f"K7 disagrees with model.forward: {k7_errs}")
+        report["k7_max_abs_err"] = k7_errs
+
+        mark("every backend")
+        # The vote pipeline through every kernel backend, each its own path.
+        base_feats = FeatureExtractor("pallas_v4", device=dev).extract_batch(pcms)
+        base_probs = [forward(net.params, torch.from_numpy(f).to(dev),
+                              net.num_speakers).cpu().numpy() for f in base_feats]
+        cents = np.stack([m for m, _, _ in net.embeddings])
+        base_sims = cosine_matrix_many(
+            np.stack(batch_clip_embeddings(net, base_feats)), cents)
+        base_verdicts = [identify_sims_cosine(r, net.embeddings, thr) for r in base_sims]
+        base_margins = [gate_margin(r, net.embeddings, thr) for r in base_sims]
+        base_lists = None
+        backend_report = {}
+        for kid, backend in BACKENDS.items():
+            ex = FeatureExtractor(backend, device=dev)
+            zero_counts()
+            t0 = time.perf_counter()
+            blists = identify_speaker_list_batch(net, pcms, thr, ex)
+            b_s = time.perf_counter() - t0
+            b_launches = read_counts(f"votes through {backend}")[kid]
+            if b_launches < 1 or len(blists) != len(pcms):
+                fail(f"the vote pipeline through {backend!r} launched {kid} "
+                     f"{b_launches} times")
+            bfeats = ex.extract_batch(pcms)
+            ferr = max(float(np.abs(a - b).max()) for a, b in zip(bfeats, base_feats))
+            bsims = cosine_matrix_many(np.stack(batch_clip_embeddings(net, bfeats)), cents)
+            serr = float(np.abs(bsims - base_sims).max())
+            bverdicts = [identify_sims_cosine(r, net.embeddings, thr) for r in bsims]
+            if base_lists is None:
+                base_lists = blists  # K1 runs first: the lists to hold the others to
+            # A window whose vote may change moves at most one vote out of a
+            # count and one into another: a list is held to K1's whole when
+            # no window is that close, its top speaker when the top two
+            # counts differ by more than twice the number that are.
+            whole = top = 0
+            for i, probs in enumerate(base_probs):
+                counts, soft = vote_check(probs, net.num_speakers, thr, GPU_VS_CPU_TOL)
+                top2 = np.sort(np.r_[0, counts])[-2:]
+                if soft == 0:
+                    whole += 1
+                    if blists[i] != base_lists[i]:
+                        fail(f"{backend!r}: clip {i} votes {blists[i]}, K1 {base_lists[i]}")
+                elif top2[1] - top2[0] > 2 * soft:
+                    top += 1
+                    if blists[i][:1] != base_lists[i][:1]:
+                        fail(f"{backend!r}: clip {i} top-voted {blists[i][:1]}, K1 "
+                             f"{base_lists[i][:1]} ({soft} windows within "
+                             f"{GPU_VS_CPU_TOL:g} of a vote change)")
+            # A verdict may rightly differ only where a similarity lies within
+            # the two backends' difference of a gate bound (or of the other
+            # top similarity): the margin has to exceed twice that difference.
+            firm = [m > 2 * serr for m in base_margins]
+            if any(f and a != b for f, a, b in zip(firm, bverdicts, base_verdicts)):
+                fail(f"{backend!r}: gate verdicts {bverdicts} differ from K1's {base_verdicts}")
+            print(f"[backends] {backend!r} ({kid}): {b_launches} launches, votes "
+                  f"{n_windows / b_s:,.0f} windows/s; features max abs err vs K1 "
+                  f"{ferr:.2e} (bound {K1_TOL:g}); vote lists equal K1's whole on "
+                  f"{whole} clips and in their top speaker on {top} more (the rest "
+                  f"too close to call); sims max abs err vs K1 {serr:.2e}, gate "
+                  f"verdicts equal K1's on all {sum(firm)} clips with margin > "
+                  f"{2 * serr:.2e} ({sum(m > GPU_VS_CPU_TOL for m in base_margins)} "
+                  f"with margin > {GPU_VS_CPU_TOL:g})")
+            if ferr > K1_TOL:
+                fail(f"{backend!r} features differ from K1's by {ferr}")
+            backend_report[backend] = {"launches": b_launches, "feature_err": ferr,
+                                       "lists_whole": whole, "lists_top": top,
+                                       "verdicts_firm": sum(firm)}
+        report["backends"] = backend_report
+
+        mark("GPU vs CPU")
         # 7. The GPU path against the CPU path on one clip per speaker.
         pick = [k * CLIPS_PER_SPEAKER for k in range(N_SPEAKERS)]
         sub = [pcms[i] for i in pick]
@@ -517,9 +746,10 @@ def main() -> int:
         report["gate_verdicts"] = gv
         report["gate_margins"] = gmargins
 
+    mark("reduced CPU/GPU runs")
     # 8. The same bare run at a reduced size, CPU (plain) vs GPU (kernels).
-    small_spk = np.repeat(np.arange(4), 4)
-    small_pcm = synth_clips(f0[:4], env[:4], small_spk, gen, dev, seconds=2)
+    small_spk = np.repeat(np.arange(4), 3)
+    small_pcm = synth_clips(f0[:4], env[:4], small_spk, gen, dev, seconds=1)
     runs = {}
     for device in ("cpu", "cuda"):
         with tempfile.TemporaryDirectory(prefix="streamz_chip_smoke_small_") as work:
@@ -552,31 +782,107 @@ def main() -> int:
         fail("the reduced run compared no label")
     report["cpu_vs_gpu_run"] = {"cpu": cl, "gpu": gl_, "compared": compared}
 
-    # 9. Timing with CUDA events at the main-path shapes.
+    mark("bench twin")
+    # 9. The bench twin, once, as a user runs it; then timing with CUDA
+    # events at the main-path shapes.
+    zero_counts()
+    bench_rec = bench.run()
+    bench_counts = read_counts("bench")
+    print(f"[bench] {json.dumps(bench_rec)}")
+    if bench_counts[win_kid] < 1 or bench_counts["K7"] < 1:
+        fail(f"the bench twin's launches {bench_counts}: expected {win_kid} and K7 >= 1")
+    report["bench"] = bench_rec
+    # Each kernel's launches are those of the one run of its own path, its
+    # counts zeroed just before and read just after: the default run for K5,
+    # K6 and the probe's winner, the vote pipeline through its backend for
+    # the other MFCC kernels, the bench twin for K7.
+    own_path = {k: "default run" for k in ("K5", "K6", win_kid)}
+    own_path.update({k: f"votes through {b}" for k, b in BACKENDS.items() if k != win_kid})
+    own_path["K7"] = "bench"
+    launches = {k: by_path[p][k] for k, p in own_path.items()}
+    print("[launches] by path: " + "; ".join(
+        f"{path}: " + ", ".join(f"{k} {v}" for k, v in c.items() if v)
+        for path, c in by_path.items()))
+    print("[launches] reported, each from its kernel's own path: " + ", ".join(
+        f"{k} {launches[k]} ({own_path[k]})" for k in sorted(launches)))
+    report["launches_by_path"] = by_path
+
+    mark("timing")
     B, T = main_pcm.shape
     rows = B * (T // 400)
-    ops, nbytes = k1_ops_and_bytes(B, T, len(mfcc_kernel.kernel_constants()["fbw"]))
+    mel_w = len(mfcc_kernel.kernel_constants()["fbw"])
+    ops, nbytes = k1_ops_and_bytes(B, T, mel_w)
     k1_bound_ms, k1_bound_by = bound(ops, nbytes)
     tf32_bound_ms = max(ops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
     dft = mfcc._constants(dev)[0]
     blocks = main_pcm.view(rows, 400)
-    k1_ms = time_cuda(lambda: mfcc_kernel.mfcc_base_v4(main_pcm), iters=20)
-    k1_plain_ms = time_cuda(lambda: mfcc.mfcc_base(main_pcm), iters=5)
-    k1_lib_ms = time_cuda(lambda: torch.matmul(blocks, dft), iters=20)
-    k1_ms_2 = time_cuda(lambda: mfcc_kernel.mfcc_base_v4(main_pcm), iters=20)
+    k1_ms = time_ms(lambda: mfcc_kernel.mfcc_base_v4(main_pcm), iters=20)
+    k1_plain_ms = time_ms(lambda: mfcc.mfcc_base(main_pcm), iters=5)
+    k1_lib_ms = time_ms(lambda: torch.matmul(blocks, dft), iters=20)
+    k1_ms_2 = time_ms(lambda: mfcc_kernel.mfcc_base_v4(main_pcm), iters=20)
     print(f"[time] K1 mfcc_base_v4 [{B}, {T}] ({rows} block rows): {k1_ms:.3f} ms, "
           f"again {k1_ms_2:.3f} ms; plain {k1_plain_ms:.3f} ms; torch.matmul DFT stage "
           f"{k1_lib_ms:.3f} ms; bound {k1_bound_ms:.3f} ms by {k1_bound_by} "
           f"({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; TF32 bound "
           f"{tf32_bound_ms:.3f} ms) | {card}")
 
+    timed = {}
+    frames = main_pcm.unfold(1, 800, 400).reshape(-1, 800).contiguous()
+    frame_dft = mfcc_kernel._frame_constants(dev)
+    k4_lib_ms = time_ms(lambda: torch.matmul(frames, frame_dft), iters=10)
+    del frames
+    k4_form_ops, k4_form_bytes = k4_formulation_ops_and_bytes(B, T, mel_w)
+    k4_form_ms, _ = bound(k4_form_ops, k4_form_bytes)
+    for kid in ("K2", "K3", "K4"):
+        if kid == "K4":  # K1's function, so K1's work bounds it
+            f32_ops, kb = ops, nbytes
+            bf_ops, lib_ms = 0.0, k4_lib_ms
+        else:
+            f32_ops, bf_ops, kb = mfcc_tc_ops_and_bytes(B, T, mel_w, kid == "K2")
+            lib_ms = k1_lib_ms
+        bound_ms, bound_by = bound(f32_ops, kb, bf_ops)
+        wrapper = mfcc_kernel.WRAPPERS[kid]
+        ms_1 = time_ms(lambda: wrapper(main_pcm), iters=10)
+        plain_ms = time_ms(lambda: plain_base[kid](main_pcm), iters=3)
+        ms_2 = time_ms(lambda: wrapper(main_pcm), iters=10)
+        timed[kid] = {"ms": [ms_1, ms_2], "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+        form = (f"; its frame-major formulation's own work {k4_form_ops / 1e9:.2f} "
+                f"GFLOP, {k4_form_ms:.3f} ms at the FP32 peak" if kid == "K4" else "")
+        print(f"[time] {kid} {wrapper.__name__} [{B}, {T}]: {ms_1:.3f} ms, again "
+              f"{ms_2:.3f} ms; plain {plain_ms:.3f} ms; torch.matmul DFT stage "
+              f"{lib_ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
+              f"({f32_ops / 1e9:.2f} GFLOP FP32 + {bf_ops / 1e9:.2f} GFLOP bf16, "
+              f"{kb / 1e6:.1f} MB){form} | {card}")
+    timed["K4"]["formulation_ms"] = k4_form_ms
+
+    ns = net.num_speakers
+    k7_ops, k7_bytes = k7_ops_and_bytes(k7_x.shape[0], (*dims[:3], net.capacity))
+    k7_bound_ms, k7_bound_by = bound(k7_ops, k7_bytes)
+    fwd_1 = bench.bench_forward(net, k7_x)
+    fwd_2 = bench.bench_forward(net, k7_x)
+    k7_ms = [fwd_1["forward_k7_ms"], fwd_2["forward_k7_ms"]]
+    k7_plain_ms = fwd_1["forward_plain_ms"]
+    timed["K7"] = {"ms": k7_ms, "plain_ms": k7_plain_ms, "library_ms": None,
+                   "bound_ms": k7_bound_ms, "bound_by": k7_bound_by}
+    print(f"[time] K7 forward_probs_k7 [{k7_x.shape[0]}, 60] capacity {net.capacity}, "
+          f"{ns} live: {k7_ms[0]:.3f} ms, again {k7_ms[1]:.3f} ms; plain forward "
+          f"{k7_plain_ms:.3f} ms, again {fwd_2['forward_plain_ms']:.3f} ms; no single "
+          f"PyTorch call computes it; bound {k7_bound_ms:.3f} ms by {k7_bound_by} "
+          f"({k7_ops / 1e9:.2f} GFLOP, {k7_bytes / 1e6:.1f} MB) | {card}")
+    fronts = bench.bench_frontends()
+    print("[time] frontends at 32 x 10 s: " + ", ".join(
+        f"{k.split('_windows')[0][5:]} {v:,.0f}" for k, v in fronts.items())
+        + f" windows/s | {card}")
+    report["frontends_windows_per_s"] = fronts
+
     k5_params = init_params(*dims[:3], 128, seed=SEED, device=dev)
     k5_args = (k5_params, k5_x, k5_y, k5_w, N_SPEAKERS)
     k5_ops, k5_bytes = k5_ops_and_bytes(k5_w, dims)
     k5_bound_ms, k5_bound_by = bound(k5_ops, k5_bytes)
-    k5_ms = time_cuda(lambda: tk.corpus_grads_k5(*k5_args), iters=50)
-    k5_plain_ms = time_cuda(lambda: tk.corpus_grads_plain(*k5_args), iters=50)
-    k5_ms_2 = time_cuda(lambda: tk.corpus_grads_k5(*k5_args), iters=50)
+    k5_ms = time_ms(lambda: tk.corpus_grads_k5(*k5_args), iters=50)
+    k5_plain_ms = time_ms(lambda: tk.corpus_grads_plain(*k5_args), iters=50)
+    k5_ms_2 = time_ms(lambda: tk.corpus_grads_k5(*k5_args), iters=50)
     print(f"[time] K5 corpus_grads [4096, 60] cap 128: {k5_ms:.3f} ms, again "
           f"{k5_ms_2:.3f} ms; plain {k5_plain_ms:.3f} ms; bound {k5_bound_ms:.4f} ms "
           f"by {k5_bound_by} ({k5_ops / 1e9:.2f} GFLOP, {k5_bytes / 1e6:.2f} MB); "
@@ -586,9 +892,9 @@ def main() -> int:
     k6_args = (k6_p, k6_chunks, k6_masks, k6_tvec, N_SPEAKERS + 1, config.LR_EARLY)
     k6_ops, k6_bytes = k6_ops_and_bytes(k6_masks, dims)
     k6_bound_ms, k6_bound_by = bound(k6_ops, k6_bytes)
-    k6_ms = time_cuda(lambda: tk.train_windows_k6(*k6_args), iters=5, warmup=1)
-    k6_plain_ms = time_cuda(lambda: tk.train_windows_plain(*k6_args), iters=2, warmup=1)
-    k6_ms_2 = time_cuda(lambda: tk.train_windows_k6(*k6_args), iters=5, warmup=1)
+    k6_ms = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=5)
+    k6_plain_ms = time_ms(lambda: tk.train_windows_plain(*k6_args), iters=1)
+    k6_ms_2 = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=5)
     live = int((k6_masks.sum(dim=1) > 0).sum())
     print(f"[time] K6 file_train, {k6_chunks.shape[0]} chunks ({live} with a surviving "
           f"window): {k6_ms:.3f} ms, again {k6_ms_2:.3f} ms ({min(k6_ms, k6_ms_2) * 1e3 / live:.1f} "
@@ -600,7 +906,10 @@ def main() -> int:
           f"({n_windows} windows, {identify_s:.3f} s, host decode included); vote "
           f"pipeline {n_windows / vote_s:,.0f} windows/s ({vote_s:.3f} s) | {card}")
     total_s = time.perf_counter() - t_start
-    print(f"[time] chip_smoke phases 1-9: {total_s:.1f} s")
+    mark("end")
+    by_phase = {a: t1 - t0 for (a, t0), (_, t1) in zip(marks, marks[1:])}
+    print(f"[time] chip_smoke phases 1-9: {total_s:.1f} s after a {build_s:.1f} s build; "
+          "by phase " + ", ".join(f"{k} {v:.1f} s" for k, v in by_phase.items()))
     report.update({
         "identify_s": identify_s, "identify_windows": n_windows,
         "identify_windows_per_s": n_windows / identify_s,
@@ -611,13 +920,14 @@ def main() -> int:
         "k1_matmul_dft_ms": k1_lib_ms, "k1_tf32_bound_ms": tf32_bound_ms,
         "k5_ms": [k5_ms, k5_ms_2], "k5_plain_ms": k5_plain_ms,
         "k6_ms": [k6_ms, k6_ms_2], "k6_plain_ms": k6_plain_ms, "k6_live_chunks": live,
-        "k6_chunks": int(k6_chunks.shape[0]), "total_s": total_s,
+        "k6_chunks": int(k6_chunks.shape[0]), "total_s": total_s, "timed": timed,
+        "script_s_by_phase": by_phase,
     })
     kernels = {"kernels": [
         {"name": "mfcc_base_v4", "route": "cuda",
          "source": "streamz_tpu_torch/csrc/mfcc_base.cu",
          "replaces": "streamz_tpu/dsp/pallas_mfcc.py:612",
-         "launches": launches["K1"], "max_abs_err": max(errs.values()),
+         "launches": launches["K1"], "max_abs_err": max(mfcc_errs["K1"].values()),
          "ms": min(k1_ms, k1_ms_2), "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
          "bound_by": k1_bound_by, "library_ms": k1_lib_ms},
         {"name": "corpus_grads_k5", "route": "cuda",
@@ -633,10 +943,30 @@ def main() -> int:
          "ms": min(k6_ms, k6_ms_2), "plain_ms": k6_plain_ms, "bound_ms": k6_bound_ms,
          "bound_by": k6_bound_by, "library_ms": None},
     ]}
+    for kid, name, src, replaces, err in (
+            ("K2", "mfcc_base_v3", "mfcc_v3.cu", "dsp/pallas_mfcc.py:383",
+             max(mfcc_errs["K2"].values())),
+            ("K3", "mfcc_base_v2", "mfcc_v2.cu", "dsp/pallas_mfcc.py:218",
+             max(mfcc_errs["K3"].values())),
+            ("K4", "mfcc_base_frames", "mfcc_frames.cu", "dsp/pallas_mfcc.py:95",
+             max(mfcc_errs["K4"].values())),
+            ("K7", "forward_probs_k7", "forward_probs.cu", "nn/pallas_forward.py:35",
+             max(k7_errs.values()))):
+        t = timed[kid]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda", "source": f"streamz_tpu_torch/csrc/{src}",
+            "replaces": f"streamz_tpu/{replaces}", "launches": launches[kid],
+            "max_abs_err": err, "ms": min(t["ms"]), "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    for entry, kid in zip(kernels["kernels"], ("K1", "K5", "K6", "K2", "K3", "K4", "K7")):
+        entry["path"] = own_path[kid]
+        entry["launches_by_path"] = {p: c[kid] for p, c in by_path.items() if c[kid]}
     report.update(kernels)
     out_dir = HERE / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    cache_dir.cleanup()
     print(card)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -51,6 +51,16 @@ def nvcc() -> str:
     return found
 
 
+def source_hash(name: str) -> str:
+    """A hash of what a kernel's library is built from, the compiler aside:
+    ``csrc/<name>.cu``, the shared headers and the flags."""
+    key = hashlib.sha256(source(name).read_bytes())
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        key.update(header.name.encode() + b"\0" + header.read_bytes())
+    key.update("\0".join(NVCC_FLAGS).encode())
+    return key.hexdigest()
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library built from this source,
     these headers, these flags and this ``nvcc`` exists."""
@@ -59,10 +69,7 @@ def build(name: str) -> Path:
         [compiler, "--version"], capture_output=True, text=True, check=True
     ).stdout
     src = source(name)
-    key = hashlib.sha256(src.read_bytes())
-    for header in sorted(SOURCE_DIR.glob("*.cuh")):
-        key.update(header.name.encode() + b"\0" + header.read_bytes())
-    key.update("\0".join((*NVCC_FLAGS, version)).encode())
+    key = hashlib.sha256(f"{source_hash(name)}\0{version}".encode())
     lib = BUILD_DIR / f"lib{name}_{key.hexdigest()[:16]}.so"
     if lib.exists():
         return lib

@@ -2,9 +2,10 @@
 
   python -m streamz_tpu_torch [--threshold <v>] [--burn-in-limit <n>]
                               [--max-speakers <n>] [--no-cache-wav]
-                              [--force] [--retrain] [--device cuda|cpu]
-  python -m streamz_tpu_torch --identify <file>... [--threshold <v>]
+                              [--force] [--retrain] [--no-autotune]
                               [--device cuda|cpu]
+  python -m streamz_tpu_torch --identify <file>... [--threshold <v>]
+                              [--no-autotune] [--device cuda|cpu]
 
 A bare run is the default training run, as ``python -m streamz_tpu`` is:
 in a directory holding ``train_files.txt`` (one ``path`` or
@@ -19,7 +20,10 @@ over), runs the discovery loop over every file in list order, then writes
 printing one verdict line per clip.
 
 Both run on ``cuda`` unless ``--device cpu`` is given, and fail when CUDA
-is missing rather than falling back to the CPU.  The other modes of the JAX
+is missing rather than falling back to the CPU.  On the card the frontend is
+the measured winner of K1 and K2 (``dsp/features.py``), probed at first use
+and cached per card; ``--no-autotune`` skips the probe, so a cold cache
+takes K1.  The other modes of the JAX
 package's CLI (``--eval``, ``--check-embeddings``, ``--cluster-embeddings``,
 ``--encode``/``--decode``/``--checksum``, ``--serve``, ``--profile``, the
 multi-host flags) are not yet ported: they print so and return 2.
@@ -52,7 +56,7 @@ from streamz_tpu_torch.nn import checkpoint
 from streamz_tpu_torch.nn.model import SpeakerNet
 
 _VALUE_FLAGS = ("--threshold", "--device", "--burn-in-limit", "--max-speakers")
-_SWITCHES = ("--identify", "--force", "--retrain", "--no-cache-wav")
+_SWITCHES = ("--identify", "--force", "--retrain", "--no-cache-wav", "--no-autotune")
 
 
 @contextlib.contextmanager
@@ -138,6 +142,11 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
     threshold = _parse_float(args, "--threshold", config.DEFAULT_CONF_THRESHOLD)
     device = _flag_value(args, "--device") or "cuda"
     config.set_wav_cache_enabled("--no-cache-wav" not in args)
+    if "--no-autotune" in args:
+        # Skip the frontend's first-use probe: cached decisions still apply,
+        # a cold cache takes the static default.  Exported so worker
+        # subprocesses inherit it.
+        os.environ["STREAMZ_NO_AUTOTUNE"] = "1"
     try:
         extractor = FeatureExtractor(device=device)
     except (RuntimeError, ValueError) as e:  # no CUDA, or an unknown device
@@ -158,8 +167,9 @@ def _train_mode(extractor: FeatureExtractor, conf_threshold: float, *,
                 burn_in_limit: Optional[int], max_speakers: Optional[int],
                 force_retrain: bool, report: dict) -> int:
     """The default run (``streamz_tpu/cli.py:335-554``): ingest, the
-    frontend (K1), corpus training of the labelled files (K5), the
-    discovery loop (K6), then centroids, ``model.npz`` and the lists."""
+    frontend (K1 or K2, whichever 'auto' measured faster), corpus
+    training of the labelled files (K5), the discovery loop (K6), then
+    centroids, ``model.npz`` and the lists."""
     times: Dict[str, float] = {}
     report["phase_seconds"] = times
     dev = extractor.device
@@ -249,7 +259,7 @@ def _train_mode(extractor: FeatureExtractor, conf_threshold: float, *,
 def _identify_mode(paths: List[str], threshold: float,
                    extractor: FeatureExtractor) -> int:
     """One-shot identification of ``paths`` against the saved model: host
-    decode/resample, the frontend (K1 on CUDA), mean-pooled ReLU-h2
+    decode/resample, the frontend (the 'auto' winner on CUDA), mean-pooled ReLU-h2
     embeddings, cosine against the stored centroids, the adaptive gate."""
     try:
         net = checkpoint.load(config.MODEL_PATH, device=extractor.device)

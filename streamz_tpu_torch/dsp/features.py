@@ -1,53 +1,148 @@
 """FeatureExtractor facade + the ``feature_cache/*.npy`` load-or-compute layer.
 
 The port of ``streamz_tpu/dsp/features.py`` (reference
-``streamz-rs/src/lib.rs:231-276``, ``:558-579``).  Backends:
+``streamz-rs/src/lib.rs:231-276``, ``:558-579``), with the JAX package's
+backend names.  Each kernel backend runs its own hand-written CUDA kernel on
+the card (:mod:`streamz_tpu_torch.dsp.mfcc_kernel`):
 
-- ``'auto'`` (default): the frontend through K1
-  (:func:`streamz_tpu_torch.dsp.mfcc_kernel.mfcc_features_v4`).  On a CUDA
-  device that runs the hand-written kernel, with no fallback; on the CPU the
-  kernel's wrapper runs the plain formulation, since there is no kernel
-  there.  Unlike the JAX package, ``'auto'`` is not a measured choice.
+- ``'pallas_v4'``: K1, ``csrc/mfcc_base.cu`` (FP32, CUDA cores);
+- ``'pallas_v3'``: K2, ``csrc/mfcc_v3.cu`` (bf16x3 DFT and mel, tensor cores);
+- ``'pallas_v2'``: K3, ``csrc/mfcc_v2.cu`` (bf16x3 DFT, tensor cores; f32 mel);
+- ``'pallas'``: K4, ``csrc/mfcc_frames.cu`` (FP32 frame-major 800-tap DFT);
 - ``'plain'``: the plain PyTorch formulation, the counterpart of the JAX
   package's ``'jax'`` backend; it runs on the card only when asked for by
-  name.
-- ``'numpy'``: the host golden spec, not yet ported.
+  name;
+- ``'numpy'``: the host golden spec (:mod:`streamz_tpu_torch.dsp.mfcc_ref`);
+- ``'auto'`` (default): on a card, the measured winner of K2 against K1
+  (:func:`autotune_frontend`, cached per card by
+  :mod:`streamz_tpu_torch.runtime.autotune`); on the CPU, ``'plain'``.
+
+A kernel backend on a CPU device runs its kernel's plain version, since
+there is no kernel there.  Nothing falls back: a kernel that fails to build
+or launch, in a probe or in a run, raises.
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
-from typing import List, Sequence
+import threading
+from functools import lru_cache
+from typing import Callable, List, Optional, Sequence, TypeVar
 
 import numpy as np
+import torch
 
+from streamz_tpu_torch import _cuda_build
 from streamz_tpu_torch.device import resolve_device
-from streamz_tpu_torch.dsp import mfcc, mfcc_kernel
+from streamz_tpu_torch.dsp import mfcc, mfcc_kernel, mfcc_ref
 from streamz_tpu_torch.io import audio
+from streamz_tpu_torch.runtime import autotune
+from streamz_tpu_torch.runtime.measure import chain_timer
 
-_BACKENDS = ("auto", "plain", "numpy")
+R = TypeVar("R")
+
+_BACKENDS = (
+    "auto", "plain", "pallas", "pallas_v2", "pallas_v3", "pallas_v4", "numpy"
+)
+_CORES = {
+    "plain": mfcc.mfcc_features,
+    "pallas": mfcc_kernel.mfcc_features_frames,
+    "pallas_v2": mfcc_kernel.mfcc_features_v2,
+    "pallas_v3": mfcc_kernel.mfcc_features_v3,
+    "pallas_v4": mfcc_kernel.mfcc_features_v4,
+}
+
+
+def _core_for(backend: str) -> mfcc.Core:
+    return _CORES[backend]
+
+
+def _time_frontend(core, pcm, n_samples, iters: int = 8) -> float:
+    """Median-of-3 device seconds of ``iters`` frontend calls (the shared
+    timer of :mod:`streamz_tpu_torch.runtime.measure`)."""
+    with torch.inference_mode():
+        return chain_timer(core, pcm, n_samples, iters=iters) * iters
+
+
+@lru_cache(maxsize=None)
+def _probe_versions() -> tuple:
+    """The probe's candidates with the hash of each one's kernel sources, so
+    that a cached decision holds only for the builds it measured."""
+    return tuple(
+        (backend, _cuda_build.source_hash(mfcc_kernel.SOURCES[kid]))
+        for backend, kid in (("pallas_v3", "K2"), ("pallas_v4", "K1"))
+    )
+
+
+def autotune_frontend(force: bool = False) -> str:
+    """Measure K2 (``'pallas_v3'``, tensor cores) against K1
+    (``'pallas_v4'``, CUDA cores) on this card and return the winner; a
+    cold cache with probing disabled gives ``'pallas_v4'``.  Without a card
+    ``'plain'``, without probing.  Cached in-process and on disk per card."""
+    # The JAX package's probe: 32 clips x 10 s of N(0, 0.1) noise from seed
+    # 0, 16 calls per timing, median of 3.  The input is built on the first
+    # probe and shared by both candidates.
+    shared = {}
+
+    def _setup():
+        if shared:
+            return
+        rng = np.random.default_rng(0)
+        B, T = 32, 441600
+        dev = resolve_device(None)
+        shared["pcm"] = torch.from_numpy(
+            rng.normal(0, 0.1, size=(B, T)).astype(np.float32)).to(dev)
+        shared["ns"] = torch.full((B,), T, dtype=torch.int64, device=dev)
+
+    def probe_for(backend):
+        def probe():
+            _setup()
+            return _time_frontend(_core_for(backend), shared["pcm"], shared["ns"],
+                                  iters=16)
+        return probe
+
+    return autotune.measured_choice(
+        "frontend",
+        {"pallas_v3": probe_for("pallas_v3"), "pallas_v4": probe_for("pallas_v4")},
+        default="pallas_v4" if autotune.on_cuda() else "plain",
+        force=force,
+        versions=dict(_probe_versions()),
+    )
+
+
+def frontend_core(backend: str = "auto") -> mfcc.Core:
+    """A frontend implementation by backend name; ``'auto'`` resolves to the
+    measured winner (see :func:`autotune_frontend`)."""
+    if backend == "numpy":
+        raise ValueError(
+            "the 'numpy' backend is the host-side golden spec "
+            "(dsp/mfcc_ref.py) and has no device core; use "
+            "FeatureExtractor(backend='numpy') for host extraction"
+        )
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown frontend backend {backend!r}")
+    if backend == "auto":
+        backend = autotune_frontend()
+    return _core_for(backend)
 
 
 class FeatureExtractor:
     """Stateless MFCC frontend facade bound to one device (``cuda`` unless
-    ``'cpu'`` is asked for)."""
+    ``'cpu'`` is asked for); ``backend`` is one of the module's names."""
 
     def __init__(self, backend: str = "auto", device=None):
         if backend not in _BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
-        if backend == "numpy":
-            raise NotImplementedError(
-                "the 'numpy' frontend backend is not yet ported to "
-                "streamz_tpu_torch"
-            )
         self.backend = backend
         self.device = resolve_device(device)
 
-    def _core(self):
-        if self.backend == "plain":
-            return mfcc.mfcc_features
-        return mfcc_kernel.mfcc_features_v4
+    def resolved(self) -> str:
+        """The backend a call runs: ``'auto'`` is the measured winner on a
+        card and ``'plain'`` on the CPU."""
+        if self.backend != "auto":
+            return self.backend
+        return autotune_frontend() if self.device.type == "cuda" else "plain"
 
     def extract(self, samples: np.ndarray) -> np.ndarray:
         """PCM (i16 or f32) → [n_windows, 60] float32."""
@@ -55,9 +150,30 @@ class FeatureExtractor:
 
     def extract_batch(self, clips: Sequence[np.ndarray]) -> List[np.ndarray]:
         """Batched extraction: one frontend call per padded-length bucket."""
+        if self.backend == "numpy":
+            return [mfcc_ref.extract_features_np(c) for c in clips]
         return mfcc.extract_features_batch(
-            clips, core=self._core(), device=self.device
+            clips, core=_core_for(self.resolved()), device=self.device
         )
+
+
+_global: Optional[FeatureExtractor] = None
+_global_lock = threading.Lock()
+
+
+def _global_extractor() -> FeatureExtractor:
+    """The process-global extractor, built at first use: a CUDA extractor
+    cannot be built at import on a machine without a card."""
+    global _global
+    with _global_lock:
+        if _global is None:
+            _global = FeatureExtractor()
+        return _global
+
+
+def with_thread_extractor(f: Callable[[FeatureExtractor], R]) -> R:
+    """Run a closure with the process-global extractor (src/lib.rs:271-276)."""
+    return f(_global_extractor())
 
 
 def save_cached_features(path: str, feats: np.ndarray) -> None:
@@ -80,9 +196,12 @@ def save_cached_features(path: str, feats: np.ndarray) -> None:
         raise
 
 
-def load_cached_features(path: str, extractor: FeatureExtractor) -> np.ndarray:
+def load_cached_features(
+    path: str, extractor: Optional[FeatureExtractor] = None
+) -> np.ndarray:
     """Load ``feature_cache/<sanitized>.npy`` or compute+store it
-    (src/lib.rs:558-579).  Returns [n_windows, 60] float32."""
+    (src/lib.rs:558-579), with the process-global extractor unless one is
+    given.  Returns [n_windows, 60] float32."""
     cache = audio.feature_cache_path(path)
     if cache.exists():
         try:
@@ -91,6 +210,7 @@ def load_cached_features(path: str, extractor: FeatureExtractor) -> np.ndarray:
             # Torn cache file (a writer interrupted mid-save): recompute
             # and overwrite instead of failing every later run.
             pass
+    extractor = extractor or _global_extractor()
     feats = extractor.extract(audio.load_audio_samples(path))
     save_cached_features(path, feats)
     return feats

@@ -1,24 +1,39 @@
-"""K1, the fused MFCC base, as a hand-written CUDA kernel for Hopper.
+"""The fused MFCC base kernels K1–K4, hand-written in CUDA for Hopper.
 
-Replaces ``streamz_tpu/dsp/pallas_mfcc.py:_mfcc_kernel_v4`` (through
-``_v4_call`` / ``mfcc_base_pallas_v4``).  The kernel source is
-``streamz_tpu_torch/csrc/mfcc_base.cu``; :mod:`streamz_tpu_torch._cuda_build`
-builds it with ``nvcc`` for ``sm_90a`` at first use into
+Each replaces one TPU kernel of ``streamz_tpu/dsp/pallas_mfcc.py`` and is the
+frontend backend of the same name in :mod:`streamz_tpu_torch.dsp.features`:
+
+==========  ===================  ======================  =====================
+Backend     Wrapper              Source (``csrc/``)      Replaces
+==========  ===================  ======================  =====================
+pallas_v4   ``mfcc_base_v4``     ``mfcc_base.cu`` (K1)   ``_mfcc_kernel_v4``
+pallas_v3   ``mfcc_base_v3``     ``mfcc_v3.cu`` (K2)     ``_mfcc_kernel_v3``
+pallas_v2   ``mfcc_base_v2``     ``mfcc_v2.cu`` (K3)     ``_mfcc_kernel_v2``
+pallas      ``mfcc_base_frames`` ``mfcc_frames.cu`` (K4) ``_mfcc_kernel``
+==========  ===================  ======================  =====================
+
+K1 and K4 are FP32 FMA on the CUDA cores (K1 the block-parity form, K4 the
+frame-major 800-tap DFT); K3 and K2 run the DFT in bf16x3 on the tensor cores
+(``nvcuda::wmma``), with the mel stage in f32 (K3) or in bf16x3 too (K2), as
+the TPU kernels compute.  :mod:`streamz_tpu_torch._cuda_build` builds each
+source with ``nvcc`` for ``sm_90a`` at first use into
 ``streamz_tpu_torch/_build/`` and loads its plain C entry point with
-``ctypes``; it is launched on PyTorch's current stream.
+``ctypes``; kernels launch on PyTorch's current stream.
 
-:func:`mfcc_base_v4` takes a [B, T] f32 PCM batch and returns the base
-MFCCs [B, T//400 - 1, 20].  A CUDA tensor launches the kernel or raises; a
-CPU tensor runs the plain formulation
-(:func:`streamz_tpu_torch.dsp.mfcc.mfcc_base`) instead, because there is no
-kernel to run there.  ``mfcc_base_v4.launches`` counts kernel launches.
+Every wrapper takes a [B, T] f32 PCM batch and returns the base MFCCs
+[B, max(T//400 - 1, 0), 20].  A CUDA tensor launches the kernel or raises;
+a CPU tensor runs the kernel's plain PyTorch version instead, because there
+is no kernel to run there: :func:`streamz_tpu_torch.dsp.mfcc.mfcc_base` (K1),
+:func:`mfcc_base_bf16x3_plain` (K2, K3) and :func:`mfcc_base_frames_plain`
+(K4).  Clips shorter than two blocks give an empty [B, 0, 20] without a
+launch.  Each wrapper counts its kernel launches in ``.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -28,59 +43,93 @@ from streamz_tpu_torch.dsp import mel as melmod
 from streamz_tpu_torch.dsp import mfcc
 
 SOURCE = _cuda_build.source("mfcc_base")
+SOURCES = {"K1": "mfcc_base", "K2": "mfcc_v3", "K3": "mfcc_v2", "K4": "mfcc_frames"}
 BUILD_DIR = _cuda_build.BUILD_DIR
 NVCC_FLAGS = _cuda_build.NVCC_FLAGS
 
-_GROUP_BINS = 64  # must match kGroupBins in the .cu source
-_GROUPS = 7       # must match kGroups
+_GROUP_BINS = 64  # must match kGroupBins / kStripBins in the .cuh sources
+_GROUPS = 7       # must match kGroups / kStrips
+_MEL_COLS = 32    # must match kMelCols (mfcc_tc.cuh)
+_WIN = config.WINDOW_SIZE
+_BLOCK = config.HOP_SIZE
 
-build_log = ""
-
-
-def build() -> Path:
-    """Compile ``csrc/mfcc_base.cu`` unless the library built from this
-    source, these flags and this ``nvcc`` exists.  The compiler's report
-    (registers, shared memory, spills) is kept in :data:`build_log`."""
-    global build_log
-    lib = _cuda_build.build("mfcc_base")
-    build_log = _cuda_build.build_logs.get("mfcc_base", build_log)
-    return lib
-
-
-def _declare(lib: ctypes.CDLL) -> None:
-    p, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.streamz_mfcc_base_v4.argtypes = [p, i64, i64, p, p, p, p, p, p, p, p]
-    lib.streamz_mfcc_base_v4.restype = ctypes.c_int
-    lib.streamz_mfcc_base_v4_smem_bytes.argtypes = []
-    lib.streamz_mfcc_base_v4_smem_bytes.restype = ctypes.c_int
+# Argument types of each source's launch entry after (pcm, B, T): the
+# constants' pointers, then out and the stream.
+_ENTRIES = {
+    "mfcc_base": ("streamz_mfcc_base_v4", 6),
+    "mfcc_frames": ("streamz_mfcc_base_frames", 6),
+    "mfcc_v2": ("streamz_mfcc_base_v2", 7),
+    "mfcc_v3": ("streamz_mfcc_base_v3", 5),
+}
+_SMEM = {
+    "mfcc_base": "streamz_mfcc_base_v4_smem_bytes",
+    "mfcc_frames": "streamz_mfcc_frames_smem_bytes",
+    "mfcc_v2": "streamz_mfcc_v2_smem_bytes",
+    "mfcc_v3": "streamz_mfcc_v3_smem_bytes",
+}
 
 
-def _library() -> ctypes.CDLL:
-    return _cuda_build.load("mfcc_base", _declare)
+def _library(name: str = "mfcc_base") -> ctypes.CDLL:
+    def declare(lib: ctypes.CDLL) -> None:
+        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        entry, n_consts = _ENTRIES[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = [p, i64, i64, *([p] * n_consts), p, p]
+        fn.restype = ctypes.c_int
+        smem = getattr(lib, _SMEM[name])
+        smem.argtypes = []
+        smem.restype = ctypes.c_int
+
+    return _cuda_build.load(name, declare)
 
 
-def smem_bytes() -> int:
-    """Shared memory one K1 block uses (builds the kernel if needed)."""
-    return int(_library().streamz_mfcc_base_v4_smem_bytes())
+def smem_bytes(name: str = "mfcc_base") -> int:
+    """Shared memory one block of ``csrc/<name>.cu`` uses (builds it if
+    needed)."""
+    return int(getattr(_library(name), _SMEM[name])())
+
+
+# ---------------------------------------------------------------------------
+# Host constants of the kernels' layouts.
+# ---------------------------------------------------------------------------
+
+
+def _grouped(cos: np.ndarray, sin: np.ndarray) -> np.ndarray:
+    """[taps, 401] cos and -sin bases → [taps, 896] f32 in 7 groups of 64
+    bins, each group's 64 cos columns then its 64 -sin columns; bins
+    401..447 are zero."""
+    taps, nbins = cos.shape
+    padded = _GROUPS * _GROUP_BINS
+    basis = np.zeros((taps, _GROUPS, 2, _GROUP_BINS), np.float32)
+    for part, src in enumerate((cos, sin)):
+        full = np.zeros((taps, padded))
+        full[:, :nbins] = src
+        basis[:, :, part, :] = full.reshape(taps, _GROUPS, _GROUP_BINS)
+    return basis.reshape(taps, -1)
+
+
+def _frame_dft() -> tuple:
+    """Full-window real-DFT basis, cos and -sin, [800, 401] float64
+    (``pallas_mfcc.py:82-87``)."""
+    n = np.arange(_WIN)[:, None]
+    k = np.arange(config.N_FFT_BINS)[None, :]
+    ang = 2.0 * np.pi * k * n / _WIN
+    return np.cos(ang), -np.sin(ang)
 
 
 def kernel_constants() -> dict:
-    """Host (numpy) constants of the kernel's layout.
+    """Host (numpy) constants of the kernels' layouts.
 
-    - ``basis`` [400, 896]: 7 groups of 64 bins, each group's 64 cos columns
-      then its 64 (negated) sin columns; bins 401..447 are zero.
+    - ``basis`` [400, 896]: the block basis in 7 groups of 64 bins (K1; K2
+      and K3 take its bf16 hi/lo split).
+    - ``frame_basis`` [800, 896]: the full-window basis, same grouping (K4).
     - ``fbw``: the mel weights, each filter's contiguous nonzero bin range
       [``mel_lo[m]``, ``mel_hi[m]``) stored from offset ``mel_off[m]``.
+    - ``mel_dense`` [448, 32]: the filterbank transposed and zero padded
+      (K2 takes its bf16 hi/lo split).
     - ``dct`` [20, 26]: the unnormalized DCT-II.
     """
     ct, st = melmod.dft_block_matrices()
-    nbins = ct.shape[1]
-    padded = _GROUPS * _GROUP_BINS
-    basis = np.zeros((config.HOP_SIZE, _GROUPS, 2, _GROUP_BINS), np.float32)
-    for part, src in enumerate((ct, st)):
-        full = np.zeros((config.HOP_SIZE, padded))
-        full[:, :nbins] = src
-        basis[:, :, part, :] = full.reshape(config.HOP_SIZE, _GROUPS, _GROUP_BINS)
     fb = melmod.mel_filterbank()  # [26, 401]
     lo, hi, off, weights = [], [], [], []
     for row in fb:
@@ -90,69 +139,194 @@ def kernel_constants() -> dict:
         hi.append(b)
         off.append(len(weights))
         weights.extend(row[a:b])
+    mel_dense = np.zeros((_GROUPS * _GROUP_BINS, _MEL_COLS), np.float32)
+    mel_dense[: fb.shape[1], : fb.shape[0]] = fb.T
     return {
-        "basis": basis.reshape(config.HOP_SIZE, -1),
+        "basis": _grouped(ct, st),
+        "frame_basis": _grouped(*_frame_dft()),
         "fbw": np.asarray(weights, np.float32),
         "mel_lo": np.asarray(lo, np.int32),
         "mel_hi": np.asarray(hi, np.int32),
         "mel_off": np.asarray(off, np.int32),
+        "mel_dense": mel_dense,
         "dct": np.asarray(melmod.dct2_matrix(), np.float32),
     }
 
 
-@lru_cache(maxsize=8)
-def _device_constants(device: torch.device):
+def bf16_split(a: torch.Tensor):
+    """hi/lo bf16 planes of an f32 tensor, hi = bf16(a), lo = bf16(a - hi),
+    both rounded to nearest even (``pallas_mfcc.py:46-56``)."""
+    a = a.to(torch.float32)
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+@lru_cache(maxsize=16)
+def _device_constants(device: torch.device, name: str):
+    """The constants each source's launch entry takes, in its order."""
     c = kernel_constants()
-    return tuple(
-        torch.from_numpy(np.ascontiguousarray(c[k])).to(device)
-        for k in ("basis", "fbw", "mel_lo", "mel_hi", "mel_off", "dct")
-    )
+
+    def t(key):
+        return torch.from_numpy(np.ascontiguousarray(c[key])).to(device)
+
+    sparse_mel = (t("fbw"), t("mel_lo"), t("mel_hi"), t("mel_off"))
+    if name == "mfcc_base":
+        return (t("basis"), *sparse_mel, t("dct"))
+    if name == "mfcc_frames":
+        return (t("frame_basis"), *sparse_mel, t("dct"))
+    basis = bf16_split(t("basis"))
+    if name == "mfcc_v2":
+        return (*basis, *sparse_mel, t("dct"))
+    return (*basis, *bf16_split(t("mel_dense")), t("dct"))
 
 
-def mfcc_base_v4(pcm: torch.Tensor) -> torch.Tensor:
-    """K1: [B, T] f32 PCM → [B, max(T//400 - 1, 0), 20] base MFCCs.
+# ---------------------------------------------------------------------------
+# The plain versions of K2, K3 (bf16x3) and K4 (frame-major).
+# ---------------------------------------------------------------------------
 
-    A CUDA tensor launches the kernel (or raises); a CPU tensor runs the
-    plain formulation.  Clips shorter than two blocks give an empty
-    [B, 0, 20] without a launch.
-    """
-    if pcm.device.type == "cpu":
-        return mfcc.mfcc_base(pcm)
+
+@lru_cache(maxsize=8)
+def _frame_constants(device: torch.device) -> torch.Tensor:
+    cos, sin = _frame_dft()
+    return torch.as_tensor(np.concatenate([cos, sin], axis=1), dtype=torch.float32,
+                           device=device)
+
+
+def _log_mel_dct(power: torch.Tensor, mel_e: torch.Tensor = None) -> torch.Tensor:
+    _, _, fb_t, dct_t = mfcc._constants(power.device)
+    if mel_e is None:
+        mel_e = power @ fb_t
+    return torch.log(torch.clamp(mel_e, min=1e-12)) @ dct_t
+
+
+def mfcc_base_frames_plain(pcm: torch.Tensor) -> torch.Tensor:
+    """K4's function in plain PyTorch: each 800-sample window (hop 400) times
+    the full-window [800, 802] cos | -sin basis, then power, mel, log and
+    DCT.  pcm: [B, T] f32 → [B, max(T//400 - 1, 0), 20]."""
+    B, T = pcm.shape
+    nb = T // _BLOCK
+    if nb < 2:
+        return pcm.new_zeros((B, 0, config.MFCC_SIZE))
+    frames = pcm[:, : nb * _BLOCK].unfold(1, _WIN, _BLOCK)  # [B, nb-1, 800]
+    parts = frames @ _frame_constants(pcm.device)
+    nbins = config.N_FFT_BINS
+    re, im = parts[..., :nbins], parts[..., nbins:]
+    return _log_mel_dct(re * re + im * im)
+
+
+def _planes(a: torch.Tensor):
+    """``bf16_split`` as f32 tensors, whose products are exact in f32."""
+    hi, lo = bf16_split(a)
+    return hi.to(torch.float32), lo.to(torch.float32)
+
+
+def mfcc_base_bf16x3_plain(pcm: torch.Tensor, mel_bf16x3: bool) -> torch.Tensor:
+    """K2's and K3's function in plain PyTorch: the block-parity DFT in
+    bf16x3 (x_hi d_hi + x_hi d_lo + x_lo d_hi as f32 matmuls of bf16 values),
+    the parity combine and power, then the mel product in bf16x3
+    (``mel_bf16x3=True``, K2) or in f32 (K3), log and DCT in f32.  The same
+    products as the kernels, summed in another order.
+    pcm: [B, T] f32 → [B, max(T//400 - 1, 0), 20]."""
+    dft_top, sign, fb_t, _ = mfcc._constants(pcm.device)
+    B, T = pcm.shape
+    nb = T // _BLOCK
+    nbins = config.N_FFT_BINS
+    xh, xl = _planes(pcm[:, : nb * _BLOCK].reshape(B, nb, _BLOCK))
+    dh, dl = _planes(dft_top)
+    parts = xh @ dh + xh @ dl + xl @ dh  # [B, nb, 802]
+    cos_p, sin_p = parts[..., :nbins], parts[..., nbins:]
+    re = cos_p[:, :-1] + sign * cos_p[:, 1:]
+    im = sin_p[:, :-1] + sign * sin_p[:, 1:]
+    power = re * re + im * im
+    if not mel_bf16x3:
+        return _log_mel_dct(power)
+    ph, pl = _planes(power)
+    mh, ml = _planes(fb_t)
+    return _log_mel_dct(power, ph @ mh + ph @ ml + pl @ mh)
+
+
+# ---------------------------------------------------------------------------
+# The wrappers.
+# ---------------------------------------------------------------------------
+
+
+def _launch(kid: str, name: str, pcm: torch.Tensor, wrapper) -> torch.Tensor:
+    """Check a CUDA PCM batch, launch ``csrc/<name>.cu`` on it and count the
+    launch on ``wrapper``; raises on anything it cannot take or a CUDA
+    error."""
     if pcm.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, got {pcm.device}")
+        raise ValueError(f"{kid} runs on CUDA or CPU tensors, got {pcm.device}")
     if pcm.dtype != torch.float32 or pcm.dim() != 2:
         raise ValueError(
-            f"K1 takes a [B, T] float32 tensor, got {pcm.dtype} {tuple(pcm.shape)}"
+            f"{kid} takes a [B, T] float32 tensor, got {pcm.dtype} {tuple(pcm.shape)}"
         )
     if not pcm.is_contiguous():
-        raise ValueError("K1 takes a contiguous [B, T] tensor")
+        raise ValueError(f"{kid} takes a contiguous [B, T] tensor")
     B, T = pcm.shape
-    nb = T // config.HOP_SIZE
+    nb = T // _BLOCK
+    shape = (B, max(nb - 1, 0), config.MFCC_SIZE)
     if B == 0 or nb < 2:
-        return torch.empty(
-            (B, max(nb - 1, 0), config.MFCC_SIZE), dtype=torch.float32,
-            device=pcm.device,
-        )
-    out = torch.empty(
-        (B, nb - 1, config.MFCC_SIZE), dtype=torch.float32, device=pcm.device
-    )
-    consts = _device_constants(pcm.device)
-    lib = _library()
+        return torch.empty(shape, dtype=torch.float32, device=pcm.device)
+    out = torch.empty(shape, dtype=torch.float32, device=pcm.device)
+    consts = _device_constants(pcm.device, name)
+    lib = _library(name)
     with torch.cuda.device(pcm.device):
         stream = torch.cuda.current_stream(pcm.device).cuda_stream
-        rc = lib.streamz_mfcc_base_v4(
-            pcm.data_ptr(), B, T, *(c.data_ptr() for c in consts),
-            out.data_ptr(), stream,
+        rc = getattr(lib, _ENTRIES[name][0])(
+            pcm.data_ptr(), B, T, *(c.data_ptr() for c in consts), out.data_ptr(),
+            stream,
         )
     if rc != 0:
-        raise RuntimeError(f"K1 (mfcc_base_v4) launch failed: CUDA error {rc}")
-    mfcc_base_v4.launches += 1
+        raise RuntimeError(f"{kid} ({wrapper.__name__}) launch failed: CUDA error {rc}")
+    wrapper.launches += 1
     return out
 
 
-mfcc_base_v4.launches = 0
+def mfcc_base_v4(pcm: torch.Tensor) -> torch.Tensor:
+    """K1 (backend ``'pallas_v4'``): FP32 block-parity MFCC base."""
+    if pcm.device.type == "cpu":
+        return mfcc.mfcc_base(pcm)
+    return _launch("K1", "mfcc_base", pcm, mfcc_base_v4)
 
 
-def mfcc_features_v4(pcm: torch.Tensor, n_samples: torch.Tensor) -> torch.Tensor:
-    """Full frontend through K1: [B, T] + [B] lengths → [B, W, 60]."""
-    return mfcc.deltas_and_norm(mfcc_base_v4(pcm), mfcc.window_count(n_samples))
+def mfcc_base_v3(pcm: torch.Tensor) -> torch.Tensor:
+    """K2 (backend ``'pallas_v3'``): bf16x3 DFT and mel on the tensor cores."""
+    if pcm.device.type == "cpu":
+        return mfcc_base_bf16x3_plain(pcm, True)
+    return _launch("K2", "mfcc_v3", pcm, mfcc_base_v3)
+
+
+def mfcc_base_v2(pcm: torch.Tensor) -> torch.Tensor:
+    """K3 (backend ``'pallas_v2'``): bf16x3 DFT on the tensor cores, f32 mel."""
+    if pcm.device.type == "cpu":
+        return mfcc_base_bf16x3_plain(pcm, False)
+    return _launch("K3", "mfcc_v2", pcm, mfcc_base_v2)
+
+
+def mfcc_base_frames(pcm: torch.Tensor) -> torch.Tensor:
+    """K4 (backend ``'pallas'``): FP32 frame-major MFCC base."""
+    if pcm.device.type == "cpu":
+        return mfcc_base_frames_plain(pcm)
+    return _launch("K4", "mfcc_frames", pcm, mfcc_base_frames)
+
+
+WRAPPERS = {"K1": mfcc_base_v4, "K2": mfcc_base_v3, "K3": mfcc_base_v2,
+            "K4": mfcc_base_frames}
+for _w in WRAPPERS.values():
+    _w.launches = 0
+
+
+def _features(base: Callable[[torch.Tensor], torch.Tensor]):
+    def core(pcm: torch.Tensor, n_samples: torch.Tensor) -> torch.Tensor:
+        return mfcc.deltas_and_norm(base(pcm), mfcc.window_count(n_samples))
+
+    core.__name__ = core.__qualname__ = base.__name__.replace("_base", "_features")
+    core.__doc__ = (f"Full frontend through ``{base.__name__}``: [B, T] + [B] "
+                    "lengths → [B, W, 60].")
+    return core
+
+
+mfcc_features_v4 = _features(mfcc_base_v4)
+mfcc_features_v3 = _features(mfcc_base_v3)
+mfcc_features_v2 = _features(mfcc_base_v2)
+mfcc_features_frames = _features(mfcc_base_frames)

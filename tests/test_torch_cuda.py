@@ -59,13 +59,17 @@ def test_k1_rejects_what_it_cannot_take(cuda_device):
 
 @pytest.mark.cuda
 def test_auto_frontend_on_card_matches_cpu(cuda_device):
-    """Ragged clips through FeatureExtractor('auto'): K1 on the card vs the
-    plain formulation on the CPU, within the 1e-3 feature gate."""
+    """Ragged clips through FeatureExtractor('auto'): the measured winner
+    (K1 or K2) on the card vs the plain formulation on the CPU, within the
+    1e-3 feature gate."""
     rng = np.random.default_rng(1)
     clips = [rng.normal(0, 3000, n).astype(np.int16) for n in (700, 9000, 44100, 441000)]
-    before = mfcc_kernel.mfcc_base_v4.launches
-    got = FeatureExtractor("auto", device=cuda_device).extract_batch(clips)
-    assert mfcc_kernel.mfcc_base_v4.launches > before
+    extractor = FeatureExtractor("auto", device=cuda_device)
+    winner = {"pallas_v4": mfcc_kernel.mfcc_base_v4,
+              "pallas_v3": mfcc_kernel.mfcc_base_v3}[extractor.resolved()]
+    before = winner.launches
+    got = extractor.extract_batch(clips)
+    assert winner.launches > before
     want = FeatureExtractor("auto", device="cpu").extract_batch(clips)
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -247,3 +251,124 @@ def test_discovery_step_never_waits_on_the_host(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert tk.train_windows_k6.launches == before + 1
     assert int(out[0]) == 3 and int(state[1]) == 4  # no centroid yet: a new class
+
+
+# ---------------------------------------------------------------------------
+# K2 (mfcc_v3.cu), K3 (mfcc_v2.cu) and K4 (mfcc_frames.cu) against their
+# plain versions, the backends through FeatureExtractor, the 'auto' probe,
+# and K7 (forward_probs.cu) against model.forward.
+# ---------------------------------------------------------------------------
+
+from streamz_tpu_torch.dsp import features  # noqa: E402
+from streamz_tpu_torch.nn import model  # noqa: E402
+from streamz_tpu_torch.nn.forward_kernel import forward_probs_k7  # noqa: E402
+
+_MFCC_PLAIN = {
+    "K2": lambda pcm: mfcc_kernel.mfcc_base_bf16x3_plain(pcm, True),
+    "K3": lambda pcm: mfcc_kernel.mfcc_base_bf16x3_plain(pcm, False),
+    "K4": mfcc_kernel.mfcc_base_frames_plain,
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kid", ["K2", "K3", "K4"])
+@pytest.mark.parametrize("B,T", SHAPES)
+def test_mfcc_kernels_match_plain_on_card(cuda_device, kid, B, T):
+    """bf16x3 (K2, K3) or FP32 (K4) in another summation order than the
+    plain version's f32 matmuls: 1e-3 on the base MFCCs.  One launch when
+    there is a window, none otherwise."""
+    wrapper = mfcc_kernel.WRAPPERS[kid]
+    rng = np.random.default_rng(B * 1000003 + T + 7)
+    pcm = torch.from_numpy(rng.normal(0, 0.1, (B, T)).astype(np.float32)).to(cuda_device)
+    before = wrapper.launches
+    got = wrapper(pcm)
+    torch.cuda.synchronize()
+    want = _MFCC_PLAIN[kid](pcm)
+    assert got.shape == want.shape == (B, max(T // 400 - 1, 0), 20)
+    assert wrapper.launches == before + int(T // 400 >= 2)
+    if got.numel():
+        assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kid", ["K1", "K2", "K3", "K4"])
+def test_mfcc_kernels_on_silence_and_odd_lengths(cuda_device, kid):
+    """A zero clip hits the log floor everywhere; a length that is not a
+    multiple of 4 takes the unaligned copy path of K2 and K3."""
+    wrapper = mfcc_kernel.WRAPPERS[kid]
+    plain = _MFCC_PLAIN.get(kid, mfcc.mfcc_base)
+    pcm = torch.zeros((3, 8001), device=cuda_device)
+    pcm[1] = torch.from_numpy(
+        np.random.default_rng(11).normal(0, 0.1, 8001).astype(np.float32))
+    got = wrapper(pcm)
+    torch.cuda.synchronize()
+    want = plain(pcm)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "pallas_v2", "pallas_v3", "pallas_v4"])
+def test_kernel_backends_on_card_match_cpu(cuda_device, backend):
+    """Ragged clips through each kernel backend on the card vs the same
+    backend's plain version on the CPU: the 1e-3 feature gate."""
+    rng = np.random.default_rng(1)
+    clips = [rng.normal(0, 3000, n).astype(np.int16) for n in (700, 9000, 44100, 441000)]
+    got = features.FeatureExtractor(backend, device=cuda_device).extract_batch(clips)
+    want = features.FeatureExtractor(backend, device="cpu").extract_batch(clips)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_auto_probe_on_card(cuda_device, tmp_path, monkeypatch):
+    """'auto' measures K2 against K1, launches both, and caches the winner."""
+    from streamz_tpu_torch.runtime import autotune
+
+    monkeypatch.setenv("STREAMZ_AUTOTUNE_CACHE", str(tmp_path / "tune.json"))
+    autotune.reset("frontend")
+    before = (mfcc_kernel.mfcc_base_v4.launches, mfcc_kernel.mfcc_base_v3.launches)
+    winner = features.autotune_frontend(force=True)
+    assert winner in ("pallas_v3", "pallas_v4")
+    assert mfcc_kernel.mfcc_base_v4.launches > before[0]
+    assert mfcc_kernel.mfcc_base_v3.launches > before[1]
+    assert features.FeatureExtractor(device=cuda_device).resolved() == winner
+    assert winner in (tmp_path / "tune.json").read_text()
+    autotune.reset("frontend")
+
+
+def _k7_inputs(rows, capacity, device, seed=0):
+    params = _params(capacity, device, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    x = torch.from_numpy(rng.normal(0, 1, (rows, 60)).astype(np.float32)).to(device)
+    return params, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ns", [0, 1, 8, 128])
+@pytest.mark.parametrize("rows", [1, 700, 70464])
+def test_k7_matches_forward_on_card(cuda_device, ns, rows):
+    """FP32 FMA against cuBLAS's FP32 sums: 1e-5 on the probabilities; the
+    columns at or past ns exactly 0.0, also at ns = 0; one launch."""
+    params, x = _k7_inputs(rows, 128, cuda_device, seed=rows)
+    before = forward_probs_k7.launches
+    got = forward_probs_k7(params, x, ns)
+    torch.cuda.synchronize()
+    assert forward_probs_k7.launches == before + 1
+    want = model.forward(params, x, ns)
+    assert got.shape == want.shape == (rows, 128)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert bool((got[:, ns:] == 0.0).all())
+
+
+@pytest.mark.cuda
+def test_k7_rejects_what_it_cannot_take(cuda_device):
+    params, x = _k7_inputs(64, 128, cuda_device)
+    with pytest.raises(ValueError):
+        forward_probs_k7(params, x.double(), 3)
+    with pytest.raises(ValueError):
+        forward_probs_k7(params, x[:, :30], 3)
+    with pytest.raises(ValueError):
+        forward_probs_k7(params, x[:, ::2], 3)
+    assert forward_probs_k7(params, x[:0], 3).shape == (0, 128)

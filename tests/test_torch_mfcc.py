@@ -209,15 +209,17 @@ def test_extract_features_batch_mixed_lengths_matches_jax():
 
 def test_extractor_backends_on_cpu():
     """'auto' on CPU tensors runs the plain formulation (no kernel launch);
-    'plain' is the same function; 'numpy' is not ported."""
+    'plain' is the same function; 'numpy' runs the port's golden spec;
+    'jax' is spelled 'plain' here."""
     clip = np.random.default_rng(8).normal(0, 3000, 6000).astype(np.int16)
     before = mfcc_kernel.mfcc_base_v4.launches
     a = FeatureExtractor("auto", device="cpu").extract(clip)
     b = FeatureExtractor("plain", device="cpu").extract(clip)
     np.testing.assert_array_equal(a, b)
     assert mfcc_kernel.mfcc_base_v4.launches == before
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        FeatureExtractor("numpy", device="cpu")
+    np.testing.assert_array_equal(
+        FeatureExtractor("numpy", device="cpu").extract(clip),
+        mfcc_ref.extract_features_np(clip))
     with pytest.raises(ValueError):
         FeatureExtractor("jax", device="cpu")
 

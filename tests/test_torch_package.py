@@ -136,6 +136,29 @@ def test_training_kernel_sources_name_what_they_replace(name, replaces):
         assert lib not in text.lower()
 
 
+@pytest.mark.parametrize("name,replaces,wrapper", [
+    ("mfcc_v3", "streamz_tpu/dsp/pallas_mfcc.py:_mfcc_kernel_v3", "dsp.mfcc_kernel.mfcc_base_v3"),
+    ("mfcc_v2", "streamz_tpu/dsp/pallas_mfcc.py:_mfcc_kernel_v2", "dsp.mfcc_kernel.mfcc_base_v2"),
+    ("mfcc_frames", "streamz_tpu/dsp/pallas_mfcc.py:_mfcc_kernel", "dsp.mfcc_kernel.mfcc_base_frames"),
+    ("forward_probs", "streamz_tpu/nn/pallas_forward.py:_fwd_kernel",
+     "nn.forward_kernel.forward_probs_k7"),
+])
+def test_frontend_and_forward_kernel_sources_name_what_they_replace(name, replaces, wrapper):
+    """K2, K3, K4 and K7: hand-written kernels with a plain C entry, no
+    library kernel for their product, and a wrapper that counts launches."""
+    import importlib
+
+    from streamz_tpu_torch import _cuda_build
+
+    text = _cuda_build.source(name).read_text(encoding="utf-8")
+    assert replaces in text
+    assert "__global__" in text and 'extern "C"' in text
+    for lib in ("cublas", "cudnn", "cufft", "cutlass"):
+        assert lib not in text.lower()
+    mod, fn = wrapper.rsplit(".", 1)
+    assert isinstance(getattr(importlib.import_module(f"streamz_tpu_torch.{mod}"), fn).launches, int)
+
+
 def test_training_entry_points_need_a_card_or_the_cpu(monkeypatch, tmp_path):
     """The default run on CUDA without a card fails with rc 1 and writes
     nothing; the kernels' wrappers take CPU tensors through their plain
