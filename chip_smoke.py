@@ -17,9 +17,11 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    (4096 windows, capacity 128) and a ragged batch, and at capacities 1024
    and 4096: gradient sums within 1e-4 of the largest |grad|, the loss sum
    within 1e-4 relative, the count exact, two runs bit-identical.  Hold K6
-   against its plain version on one main-path file (a 10 s clip: 1280 chunk
-   steps): parameters within 1e-3, the loss sum within 1e-3 relative, the
-   count exact.
+   (one thread-block cluster per file) against its plain version on one
+   main-path file (a 10 s clip: 1280 chunk steps) at capacity 128 (w3 in
+   the cluster's shared memory) and 4096 (w3 in device memory): parameters
+   within 1e-3, the loss sum within 1e-3 relative, the count exact, two
+   launches bit-identical.
    Then the frontend probe: ``autotune_frontend(force=True)`` with a fresh
    cache measures K2 against K1 and keeps the winner for the run.
 4. The default training run, ``python -m streamz_tpu_torch`` (``cli.main([])``),
@@ -54,9 +56,16 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    line is printed.  Then time every kernel per launch with CUDA events
    against its bound, its plain version and a library call, every frontend
    in windows/s, and the default run by phase (ingest, features, corpus,
-   discovery, finalize) with synchronised timers.
+   discovery, finalize) with synchronised timers.  K6 is timed per file and
+   per live step at capacities 128 and 4096, beside the card's bound and
+   one cluster's (its operations over the cluster's share of the FP32
+   peak), and beside its plain version.  Last, one more pass of the
+   discovery loop over the training clips, on a copy of the trained model,
+   under ``torch.profiler``: its time per file split into K6, the other
+   kernels and the device's idle time.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+(K6's entry also names its ``cluster`` size and ``w3_route``),
 whose ``launches`` are each kernel's count in the one run of its own path
 (named in ``path``: the default run for K5, K6 and the probe's winner, the
 vote pipeline through its backend for the other MFCC kernels, the bench
@@ -68,6 +77,7 @@ result, without CUDA or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import copy
 import io
 import json
 import math
@@ -98,6 +108,8 @@ SEED = 0
 K1_TOL = 1e-3          # base MFCCs (K1-K4 vs plain) and features: the golden gate
 K5_TOL = 1e-4          # gradient sums relative to the largest |grad|; loss sum relative
 K6_TOL = 1e-3          # parameters (abs) and loss sum (relative) after 1280 steps
+K6_CAPS = (128, 4096)  # K6 with w3 in the cluster's shared memory, and in device memory
+SMS = 132              # streaming multiprocessors of an H100 SXM
 K7_TOL = 1e-5          # probabilities, K7 vs model.forward (both FP32)
 GPU_VS_CPU_TOL = 1e-3  # features / embeddings / sims / margins, GPU vs CPU
 # Published H100 SXM peaks (NVIDIA data sheet, dense): FP32 on the CUDA
@@ -302,6 +314,7 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
 
     from streamz_tpu_torch import _cuda_build, bench, config
+    from streamz_tpu_torch.app.incremental import run_incremental
     from streamz_tpu_torch.device import resolve_device
     from streamz_tpu_torch.dsp import features, mfcc, mfcc_kernel
     from streamz_tpu_torch.dsp.features import FeatureExtractor
@@ -474,28 +487,43 @@ def main() -> int:
                                       config.DEFAULT_DROPOUT, config.INCREMENTAL_EPOCHS)
     k6_chunks = dropped.reshape(-1, config.BATCH_SIZE, config.FEATURE_SIZE).contiguous()
     k6_masks = valid.reshape(-1, config.BATCH_SIZE).contiguous()
-    k6_tvec = torch.zeros(128, device=dev)
-    k6_tvec[3] = 1.0
-    k6_params = init_params(*dims[:3], 128, seed=SEED, device=dev)
-    got_p = {k: v.clone() for k, v in k6_params.items()}
-    want_p = {k: v.clone() for k, v in k6_params.items()}
-    gl, gc = tk.train_windows_k6(got_p, k6_chunks, k6_masks, k6_tvec, N_SPEAKERS + 1,
-                                 config.LR_EARLY)
-    wl, wc = tk.train_windows_plain(want_p, k6_chunks, k6_masks, k6_tvec,
-                                    N_SPEAKERS + 1, config.LR_EARLY)
-    torch.cuda.synchronize()
-    k6_err = max(float((got_p[k] - want_p[k]).abs().max()) for k in want_p)
-    k6_loss_err = abs(float(gl) - float(wl)) / max(1.0, abs(float(wl)))
-    print(f"[k6-vs-plain] one {len(file_w)}-window file, {k6_chunks.shape[0]} chunk "
-          f"steps: params max abs err {k6_err:.3e}, loss sum err {k6_loss_err:.3e} "
-          f"(bound {K6_TOL:g} each); loss {float(gl):.6f} vs {float(wl):.6f}, count "
-          f"{float(gc):g} vs {float(wc):g}")
-    if (not math.isfinite(k6_err) or k6_err > K6_TOL or not math.isfinite(k6_loss_err)
-            or k6_loss_err > K6_TOL or float(gc) != float(wc)):
-        fail(f"K6 disagrees with its plain version: params {k6_err}, loss sum "
-             f"{k6_loss_err}, count {float(gc)} vs {float(wc)}")
-    report["k6_max_abs_err"] = k6_err
-    report["k6_loss_err"] = k6_loss_err
+    # K6 at capacity 128 (w3 in the cluster's shared memory) and 4096 (w3
+    # in device memory): against the plain loop, and two launches bit for bit.
+    k6_tvecs, k6_params, k6_plans, k6_errs = {}, {}, {}, {}
+    for cap in K6_CAPS:
+        k6_tvecs[cap] = torch.zeros(cap, device=dev)
+        k6_tvecs[cap][3] = 1.0
+        k6_params[cap] = init_params(*dims[:3], cap, seed=SEED, device=dev)
+        k6_plans[cap] = tk.k6_plan(*dims[:3], cap, config.BATCH_SIZE)
+        got_p = {k: v.clone() for k, v in k6_params[cap].items()}
+        again_p = {k: v.clone() for k, v in k6_params[cap].items()}
+        want_p = {k: v.clone() for k, v in k6_params[cap].items()}
+        args = (k6_chunks, k6_masks, k6_tvecs[cap], N_SPEAKERS + 1, config.LR_EARLY)
+        gl, gc = tk.train_windows_k6(got_p, *args)
+        al, ac = tk.train_windows_k6(again_p, *args)
+        wl, wc = tk.train_windows_plain(want_p, *args)
+        torch.cuda.synchronize()
+        if (not all(torch.equal(got_p[k], again_p[k]) for k in got_p)
+                or float(gl) != float(al) or float(gc) != float(ac)):
+            fail(f"K6 is not bit-reproducible at capacity {cap}")
+        err = max(float((got_p[k] - want_p[k]).abs().max()) for k in want_p)
+        loss_err = abs(float(gl) - float(wl)) / max(1.0, abs(float(wl)))
+        cluster, route = k6_plans[cap]
+        print(f"[k6-vs-plain] capacity {cap} ({cluster} CTAs, w3 in {route}): one "
+              f"{len(file_w)}-window file, {k6_chunks.shape[0]} chunk steps: params max "
+              f"abs err {err:.3e}, loss sum err {loss_err:.3e} (bound {K6_TOL:g} each); "
+              f"loss {float(gl):.6f} vs {float(wl):.6f}, count {float(gc):g} vs "
+              f"{float(wc):g}; two launches bit-identical")
+        if (not math.isfinite(err) or err > K6_TOL or not math.isfinite(loss_err)
+                or loss_err > K6_TOL or float(gc) != float(wc)):
+            fail(f"K6 disagrees with its plain version at capacity {cap}: params "
+                 f"{err}, loss sum {loss_err}, count {float(gc)} vs {float(wc)}")
+        k6_errs[cap] = (err, loss_err)
+    if [r for _, r in k6_plans.values()] != ["shared memory", "device memory"]:
+        fail(f"K6's w3 routes at capacities {K6_CAPS}: {k6_plans}")
+    k6_err = max(e for e, _ in k6_errs.values())
+    report["k6_max_abs_err"] = {c: e for c, (e, _) in k6_errs.items()}
+    report["k6_loss_err"] = {c: le for c, (_, le) in k6_errs.items()}
 
     mark("probe")
     # The frontend probe, with a fresh cache, before the main path, so that
@@ -888,18 +916,73 @@ def main() -> int:
           f"by {k5_bound_by} ({k5_ops / 1e9:.2f} GFLOP, {k5_bytes / 1e6:.2f} MB); "
           f"{k5_ops / (min(k5_ms, k5_ms_2) * 1e-3) / 1e12:.1f} TFLOP/s | {card}")
 
-    k6_p = {k: v.clone() for k, v in k6_params.items()}
-    k6_args = (k6_p, k6_chunks, k6_masks, k6_tvec, N_SPEAKERS + 1, config.LR_EARLY)
-    k6_ops, k6_bytes = k6_ops_and_bytes(k6_masks, dims)
-    k6_bound_ms, k6_bound_by = bound(k6_ops, k6_bytes)
-    k6_ms = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=5)
-    k6_plain_ms = time_ms(lambda: tk.train_windows_plain(*k6_args), iters=1)
-    k6_ms_2 = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=5)
     live = int((k6_masks.sum(dim=1) > 0).sum())
-    print(f"[time] K6 file_train, {k6_chunks.shape[0]} chunks ({live} with a surviving "
-          f"window): {k6_ms:.3f} ms, again {k6_ms_2:.3f} ms ({min(k6_ms, k6_ms_2) * 1e3 / live:.1f} "
-          f"us per step); plain {k6_plain_ms:.3f} ms; bound {k6_bound_ms:.4f} ms by "
-          f"{k6_bound_by} ({k6_ops / 1e9:.2f} GFLOP, {k6_bytes / 1e6:.2f} MB) | {card}")
+    k6_timed = {}
+    for cap in K6_CAPS:
+        k6_p = {k: v.clone() for k, v in k6_params[cap].items()}
+        k6_args = (k6_p, k6_chunks, k6_masks, k6_tvecs[cap], N_SPEAKERS + 1,
+                   config.LR_EARLY)
+        k6_ops, k6_bytes = k6_ops_and_bytes(k6_masks, (*dims[:3], cap))
+        k6_bound_ms, k6_bound_by = bound(k6_ops, k6_bytes)
+        cluster, route = k6_plans[cap]
+        # One cluster's bound: the operations over its share of the FP32 peak.
+        cluster_bound_ms = k6_ops / (PEAK_FP32 * cluster / SMS) * 1e3
+        k6_ms = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=10)
+        k6_plain_ms = time_ms(lambda: tk.train_windows_plain(*k6_args), iters=1)
+        k6_ms_2 = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=10)
+        k6_timed[cap] = {"ms": [k6_ms, k6_ms_2], "plain_ms": k6_plain_ms,
+                         "bound_ms": k6_bound_ms, "bound_by": k6_bound_by,
+                         "cluster_bound_ms": cluster_bound_ms, "cluster": cluster,
+                         "w3_route": route}
+        print(f"[time] K6 file_train at capacity {cap} ({cluster} CTAs, w3 in {route}), "
+              f"{k6_chunks.shape[0]} chunks ({live} with a surviving window): "
+              f"{k6_ms:.3f} ms, again {k6_ms_2:.3f} ms per file "
+              f"({min(k6_ms, k6_ms_2) * 1e3 / live:.2f} us per live step); plain "
+              f"{k6_plain_ms:.3f} ms; card bound {k6_bound_ms:.4f} ms by {k6_bound_by}, "
+              f"one cluster's bound {cluster_bound_ms:.4f} ms ({cluster} of {SMS} SMs "
+              f"at the FP32 peak; {k6_ops / 1e9:.2f} GFLOP, {k6_bytes / 1e6:.2f} MB) "
+              f"| {card}")
+
+    mark("discovery pass")
+    # Where a discovery file's time goes: one more pass of the discovery loop
+    # over the training clips, on a copy of the trained model, under
+    # torch.profiler (device activity only; everything is warm from the
+    # default run).  Its wall time splits into K6, the other kernels and the
+    # device's idle time.
+    train_feats = dict(zip(names, extractor.extract_batch(list(train_pcm))))
+    train_files = [(p, int(s)) if i % CLIPS_PER_SPEAKER < LABELLED_PER_SPEAKER else (p, None)
+                   for i, (p, s) in enumerate(zip(names, spk))]
+    burn_in = min(max(math.ceil(len(names) * config.DEFAULT_BURN_IN_FRAC), 10), 50)
+    pass_net = copy.deepcopy(net)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_incremental(pass_net, list(train_files), train_feats, burn_in_limit=burn_in,
+                        max_speakers=N_SPEAKERS + 10, show_progress=False)
+        torch.cuda.synchronize()
+        pass_s = time.perf_counter() - t0
+    by_kernel = sorted(((e.key, e.self_device_time_total * 1e-6, e.count)
+                        for e in prof.key_averages() if e.self_device_time_total > 0),
+                       key=lambda t: -t[1])
+    busy_s = sum(t for _, t, _ in by_kernel)
+    k6_pass_s = sum(t for k, t, _ in by_kernel if "file_train_kernel" in k)
+    per_file = {"wall_ms": pass_s / len(names) * 1e3,
+                "k6_ms": k6_pass_s / len(names) * 1e3,
+                "other_kernels_ms": (busy_s - k6_pass_s) / len(names) * 1e3,
+                "idle_ms": (pass_s - busy_s) / len(names) * 1e3,
+                "launches": sum(n for _, _, n in by_kernel) / len(names)}
+    if busy_s > 0:
+        print(f"[time] discovery pass under the profiler: {pass_s:.3f} s, device busy "
+              f"{busy_s / pass_s:.1%}; per file {per_file['wall_ms']:.2f} ms = K6 "
+              f"{per_file['k6_ms']:.2f} + other kernels {per_file['other_kernels_ms']:.2f} "
+              f"({per_file['launches']:.0f} launches) + idle {per_file['idle_ms']:.2f} ms; "
+              "largest: " + ", ".join(f"{k[:40]} {t * 1e3:.1f} ms x{n}"
+                                      for k, t, n in by_kernel[:4]) + f" | {card}")
+    else:
+        print(f"[time] discovery pass: {pass_s:.3f} s; the profiler recorded no device "
+              "time, so the busy share is not measured")
+    report["discovery_pass"] = {"s": pass_s, "device_busy_s": busy_s, "per_file": per_file,
+                                "kernels": by_kernel[:12]}
     print("[time] default run by phase: " + ", ".join(
         f"{k} {v:.3f} s" for k, v in phases.items()) + f"; total {train_s:.3f} s | {card}")
     print(f"[time] --identify end to end: {n_windows / identify_s:,.0f} windows/s "
@@ -919,7 +1002,7 @@ def main() -> int:
         "gpu_vs_cpu": checks, "k1_ms": [k1_ms, k1_ms_2], "k1_plain_ms": k1_plain_ms,
         "k1_matmul_dft_ms": k1_lib_ms, "k1_tf32_bound_ms": tf32_bound_ms,
         "k5_ms": [k5_ms, k5_ms_2], "k5_plain_ms": k5_plain_ms,
-        "k6_ms": [k6_ms, k6_ms_2], "k6_plain_ms": k6_plain_ms, "k6_live_chunks": live,
+        "k6": k6_timed, "k6_live_chunks": live,
         "k6_chunks": int(k6_chunks.shape[0]), "total_s": total_s, "timed": timed,
         "script_s_by_phase": by_phase,
     })
@@ -940,8 +1023,11 @@ def main() -> int:
          "source": "streamz_tpu_torch/csrc/file_train.cu",
          "replaces": "streamz_tpu/nn/pallas_train.py:237",
          "launches": launches["K6"], "max_abs_err": k6_err,
-         "ms": min(k6_ms, k6_ms_2), "plain_ms": k6_plain_ms, "bound_ms": k6_bound_ms,
-         "bound_by": k6_bound_by, "library_ms": None},
+         "ms": min(k6_timed[128]["ms"]), "plain_ms": k6_timed[128]["plain_ms"],
+         "bound_ms": k6_timed[128]["bound_ms"], "bound_by": k6_timed[128]["bound_by"],
+         "library_ms": None, "cluster": k6_timed[128]["cluster"],
+         "w3_route": k6_timed[128]["w3_route"],
+         "cluster_bound_ms": k6_timed[128]["cluster_bound_ms"]},
     ]}
     for kid, name, src, replaces, err in (
             ("K2", "mfcc_base_v3", "mfcc_v3.cu", "dsp/pallas_mfcc.py:383",

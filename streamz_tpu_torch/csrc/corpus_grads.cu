@@ -72,18 +72,18 @@ __device__ __forceinline__ void tile_grads(const float* sx, float* sh1, float* s
   float* db2 = dw2 + static_cast<size_t>(d.H1) * d.H2;
   float* dw3 = db2 + d.H2;
   float* db3 = dw3 + static_cast<size_t>(d.H2) * d.cap;
-  outer_rows<T, STORE>(sh2, d.H2, d.H2, sl, d.cap, d.cap, dw3, 0.f);
-  col_sums<T, STORE>(sl, d.cap, d.cap, db3, 0.f);
+  outer_rows<T, STORE>(sh2, d.H2, d.H2, sl, d.cap, d.cap, dw3);
+  col_sums<T, STORE>(sl, d.cap, d.cap, db3);
   __syncthreads();
   rows_times_wt<T, kTanhDeriv>(sl, d.cap, d.cap, w3, d.H2, sh2, d.H2, sh2, d.H2);
   __syncthreads();
-  outer_rows<T, STORE>(sh1, d.H1, d.H1, sh2, d.H2, d.H2, dw2, 0.f);
-  col_sums<T, STORE>(sh2, d.H2, d.H2, db2, 0.f);
+  outer_rows<T, STORE>(sh1, d.H1, d.H1, sh2, d.H2, d.H2, dw2);
+  col_sums<T, STORE>(sh2, d.H2, d.H2, db2);
   __syncthreads();
   rows_times_wt<T, kReluDeriv>(sh2, d.H2, d.H2, w2, d.H1, sh1, d.H1, sh1, d.H1);
   __syncthreads();
-  outer_rows<T, STORE>(sx, d.F, d.F, sh1, d.H1, d.H1, dw1, 0.f);
-  col_sums<T, STORE>(sh1, d.H1, d.H1, db1, 0.f);
+  outer_rows<T, STORE>(sx, d.F, d.F, sh1, d.H1, d.H1, dw1);
+  col_sums<T, STORE>(sh1, d.H1, d.H1, db1);
 }
 
 template <int T>

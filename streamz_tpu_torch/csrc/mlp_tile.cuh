@@ -1,5 +1,5 @@
 // Block-level pieces of the 60 -> 512 -> 256 -> capacity MLP's forward and
-// backward, shared by K5 (corpus_grads.cu) and K6 (file_train.cu).
+// backward, shared by K5 (corpus_grads.cu) and K7 (forward_probs.cu).
 //
 // Every piece works on a tile of T rows that lives in shared memory (A, D,
 // H below) against one weight matrix that stays in device memory (W, G),
@@ -21,7 +21,7 @@ constexpr float kMaskLogit = -1e30f;  // streamz_tpu/nn/model.py:MASK_LOGIT
 
 enum Act { kNone = 0, kRelu = 1, kTanh = 2 };
 enum Deriv { kTanhDeriv = 1, kReluDeriv = 2 };
-enum Store { kWrite = 0, kAdd = 1, kSgd = 2 };
+enum Store { kWrite = 0, kAdd = 1 };
 
 // out[r, n] = act(sum_k A[r, k] W[k, n] + bias[n]) for r < T, n < N.
 // A: [T, K] with row stride lda; W: [K, N] row-major in device memory.
@@ -94,13 +94,13 @@ __device__ __forceinline__ void rows_times_wt(const float* D, int ldd, int N,
 }
 
 // The weight gradient of a layer, sum_r A[r, k] D[r, n] over the T rows,
-// stored into G [K, N] (device memory) by STORE: written (kWrite), added
-// (kAdd), or applied as an SGD step G -= scale * sum (kSgd).  Each thread
-// owns 4 x 4 outputs at a time: 16 FMAs per two 16-byte shared loads.
+// stored into G [K, N] (device memory) by STORE: written (kWrite) or added
+// (kAdd).  Each thread owns 4 x 4 outputs at a time: 16 FMAs per two 16-byte
+// shared loads.
 template <int T, int STORE>
 __device__ __forceinline__ void outer_rows(const float* A, int lda, int K,
                                            const float* D, int ldd, int N,
-                                           float* G, float scale) {
+                                           float* G) {
   const int nq = N / 4;
   const int items = (K / 4) * nq;
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
@@ -128,13 +128,9 @@ __device__ __forceinline__ void outer_rows(const float* A, int lda, int K,
       float4 v;
       if (STORE == kWrite) {
         v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      } else if (STORE == kAdd) {
-        v = *g;
-        v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
       } else {
         v = *g;
-        v.x -= scale * acc[i][0]; v.y -= scale * acc[i][1];
-        v.z -= scale * acc[i][2]; v.w -= scale * acc[i][3];
+        v.x += acc[i][0]; v.y += acc[i][1]; v.z += acc[i][2]; v.w += acc[i][3];
       }
       *g = v;
     }
@@ -143,15 +139,13 @@ __device__ __forceinline__ void outer_rows(const float* A, int lda, int K,
 
 // The bias gradient, sum_r D[r, n], stored into G [N] as outer_rows does.
 template <int T, int STORE>
-__device__ __forceinline__ void col_sums(const float* D, int ldd, int N, float* G,
-                                         float scale) {
+__device__ __forceinline__ void col_sums(const float* D, int ldd, int N, float* G) {
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float acc = 0.f;
 #pragma unroll 4
     for (int r = 0; r < T; ++r) acc += D[r * ldd + n];
     if (STORE == kWrite) G[n] = acc;
-    else if (STORE == kAdd) G[n] += acc;
-    else G[n] -= scale * acc;
+    else G[n] += acc;
   }
 }
 

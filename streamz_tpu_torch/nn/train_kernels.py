@@ -7,7 +7,9 @@
   loss sum and the count.  :func:`corpus_grads_k5`.
 - **K6** (``csrc/file_train.cu``) replaces ``_file_train_kernel``
   (``train_windows_pallas``): the whole per-file chunk-SGD loop of the
-  discovery loop in one launch.  :func:`train_windows_k6`.
+  discovery loop in one launch of one thread-block cluster, whose CTAs hold
+  the parameters in their shared memory for the whole file (w3 stays in
+  device memory when its slices do not fit).  :func:`train_windows_k6`.
 
 Beside each kernel is its plain PyTorch version, :func:`corpus_grads_plain`
 and :func:`train_windows_plain` (a loop of :func:`_chunk_update`), with the
@@ -157,8 +159,10 @@ def _declare_k6(lib: ctypes.CDLL) -> None:
     lib.streamz_file_train.restype = i32
     lib.streamz_file_train_rows.argtypes = [i32]
     lib.streamz_file_train_rows.restype = i32
-    lib.streamz_file_train_global_logits.argtypes = [i32, i32, i32, i32, i32]
-    lib.streamz_file_train_global_logits.restype = i32
+    lib.streamz_file_train_cluster.argtypes = []
+    lib.streamz_file_train_cluster.restype = i32
+    lib.streamz_file_train_route.argtypes = [i32, i32, i32, i32, i32]
+    lib.streamz_file_train_route.restype = i32
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
@@ -245,6 +249,25 @@ def corpus_grads_k5(params: Params, batch: torch.Tensor, labels: torch.Tensor,
 corpus_grads_k5.launches = 0
 
 
+K6_W3_ROUTES = ("shared memory", "device memory")
+
+
+def k6_plan(F: int, H1: int, H2: int, capacity: int, B: int) -> Tuple[int, str]:
+    """K6's cluster size and where w3 lives for these widths and chunks of
+    B windows (builds the kernel).  Raises ValueError for a shape whose
+    resident slices of w1 and w2 do not fit the cluster."""
+    lib = _cuda_build.load("file_train", _declare_k6)
+    if int(lib.streamz_file_train_rows(B)) == 0:
+        raise ValueError(f"K6 takes chunks of at most 32 windows, got {B}")
+    route = int(lib.streamz_file_train_route(F, H1, H2, capacity, B))
+    if route < 0:
+        raise ValueError(
+            f"K6 cannot hold the widths {(F, H1, H2, capacity)} at {B} windows per "
+            f"chunk: the slices of w1 and w2 do not fit the shared memory of a "
+            f"cluster of {int(lib.streamz_file_train_cluster())} CTAs")
+    return int(lib.streamz_file_train_cluster()), K6_W3_ROUTES[route]
+
+
 def train_windows_k6(params: Params, chunks: torch.Tensor, masks: torch.Tensor,
                      target_vec: torch.Tensor, num_speakers: NumSpeakers, lr: float):
     """K6: the per-file chunk loop in one launch, over chunks [S, B, F] f32
@@ -268,12 +291,12 @@ def train_windows_k6(params: Params, chunks: torch.Tensor, masks: torch.Tensor,
     stats = torch.zeros((2,), dtype=torch.float32, device=dev)
     if S == 0:
         return stats[0], stats[1]
+    if chunks.data_ptr() % 16:
+        raise ValueError("K6 takes chunks aligned to 16 bytes")
+    _, route = k6_plan(F, H1, H2, cap, B)
     lib = _cuda_build.load("file_train", _declare_k6)
-    rows = int(lib.streamz_file_train_rows(B))
-    if rows == 0:
-        raise ValueError(f"K6 takes chunks of at most 32 windows, got {B}")
-    scratch = (torch.empty((rows, cap), dtype=torch.float32, device=dev)
-               if lib.streamz_file_train_global_logits(F, H1, H2, cap, B) else None)
+    scratch = (torch.empty((lib.streamz_file_train_rows(B), cap), dtype=torch.float32,
+                           device=dev) if route == "device memory" else None)
     ns = _ns_tensor(num_speakers, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

@@ -1,4 +1,5 @@
-"""Kernel K1 on the card: the CUDA kernel against its plain PyTorch version.
+"""The port's CUDA kernels (K1-K7) on the card, each against its plain
+PyTorch version.
 
 Every test here is marked ``cuda`` and skips without an NVIDIA GPU.  The
 file imports neither jax nor the JAX package, so it also runs on a machine
@@ -154,25 +155,26 @@ def test_k5_step_updates_in_place(cuda_device):
     assert torch.isfinite(loss)
 
 
-def _k6_inputs(capacity, device, n_pad=256, n_valid=200, epochs=5, seed=0):
+def _k6_inputs(capacity, device, n_pad=256, n_valid=200, epochs=5, seed=0, B=8):
     rng = np.random.default_rng(seed)
     windows = torch.from_numpy(rng.normal(0, 1, (n_pad, 60)).astype(np.float32)).to(device)
     dropped, valid = file_epoch_views(windows, n_valid, prng.PRNGKey(seed + 1, device),
                                       0.2, epochs)
-    chunks = dropped.reshape(-1, 8, 60).contiguous()
-    masks = valid.reshape(-1, 8).contiguous()
+    chunks = dropped.reshape(-1, B, 60).contiguous()
+    masks = valid.reshape(-1, B).contiguous()
     tvec = torch.zeros(capacity, device=device)
     tvec[3] = 1.0
     return chunks, masks, tvec
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("capacity", [128, 1024, 4096])
+@pytest.mark.parametrize("capacity", [128, 1024, 2048, 4096])
 def test_k6_matches_plain_on_card(cuda_device, capacity):
     """160 sequential chunk steps (5 epochs of 256 padded windows, 200 real,
     dropout 0.2): parameters within 1e-4 and the loss within 1e-4 relative
     of the plain loop (FP32 in another summation order, compounding over
-    the steps); one launch per file."""
+    the steps); one launch per file.  Capacity 4096 keeps w3 in device
+    memory, the others in the cluster's shared memory."""
     chunks, masks, tvec = _k6_inputs(capacity, cuda_device, seed=capacity)
     got = _params(capacity, cuda_device)
     want = {k: v.clone() for k, v in got.items()}
@@ -185,6 +187,97 @@ def test_k6_matches_plain_on_card(cuda_device, capacity):
         assert float((got[k] - want[k]).abs().max()) <= 1e-4, k
     assert abs(float(loss) - float(wloss)) <= 1e-4 * max(1.0, abs(float(wloss)))
     assert float(cnt) == float(wcnt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [128, 4096])
+@pytest.mark.parametrize("B", [12, 16, 32])
+def test_k6_wider_chunks_match_plain_on_card(cuda_device, capacity, B):
+    """Chunks of 12, 16 and 32 windows run the 16- and 32-row instances
+    (5 epochs of 384 padded windows, 300 real: 160, 120 and 60 steps): the
+    plain loop's parameters within 1e-4, its loss within 1e-4 relative, two
+    launches bit-identical.  At 32 rows w3 stays in device memory at every
+    capacity."""
+    chunks, masks, tvec = _k6_inputs(capacity, cuda_device, n_pad=384, n_valid=300,
+                                     seed=capacity + B, B=B)
+    got = _params(capacity, cuda_device)
+    again = {k: v.clone() for k, v in got.items()}
+    want = {k: v.clone() for k, v in got.items()}
+    before = tk.train_windows_k6.launches
+    loss, cnt = tk.train_windows_k6(got, chunks, masks, tvec, 9, 0.05)
+    aloss, acnt = tk.train_windows_k6(again, chunks, masks, tvec, 9, 0.05)
+    torch.cuda.synchronize()
+    assert tk.train_windows_k6.launches == before + 2
+    wloss, wcnt = tk.train_windows_plain(want, chunks, masks, tvec, 9, 0.05)
+    for k in want:
+        assert float((got[k] - want[k]).abs().max()) <= 1e-4, k
+        assert torch.equal(got[k], again[k]), k
+    assert abs(float(loss) - float(wloss)) <= 1e-4 * max(1.0, abs(float(wloss)))
+    assert float(loss) == float(aloss) and float(cnt) == float(acnt)
+    assert float(cnt) == float(wcnt)
+    _, route = tk.k6_plan(60, 512, 256, capacity, B)
+    assert route == ("shared memory" if capacity == 128 and B <= 16 else "device memory")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity", [128, 4096])
+def test_k6_two_launches_give_the_same_bits(cuda_device, capacity):
+    """Every sum runs in a fixed order, across warps and across the
+    cluster's CTAs, on both w3 routes."""
+    chunks, masks, tvec = _k6_inputs(capacity, cuda_device, seed=7)
+    first = _params(capacity, cuda_device)
+    second = {k: v.clone() for k, v in first.items()}
+    l1, c1 = tk.train_windows_k6(first, chunks, masks, tvec, 9, 0.05)
+    l2, c2 = tk.train_windows_k6(second, chunks, masks, tvec, 9, 0.05)
+    torch.cuda.synchronize()
+    for k in first:
+        assert torch.equal(first[k], second[k]), k
+    assert float(l1) == float(l2) and float(c1) == float(c2)
+    _, route = tk.k6_plan(60, 512, 256, capacity, 8)
+    assert route == ("shared memory" if capacity == 128 else "device memory")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [5, 32])
+def test_k6_ragged_slices_at_narrow_widths(cuda_device, B):
+    """60 -> 20 -> 12 -> 8 with chunks of 5 and 32 windows (the 8- and
+    32-row instances, w3 in shared memory): most CTAs own no h1 unit, no h2
+    unit and no class column, the rest slices of 4."""
+    rng = np.random.default_rng(11)
+    shapes = {"w1": (60, 20), "b1": (20,), "w2": (20, 12), "b2": (12,),
+              "w3": (12, 8), "b3": (8,)}
+    params = {k: torch.from_numpy(rng.uniform(-0.3, 0.3, shp).astype(np.float32))
+              .to(cuda_device) for k, shp in shapes.items()}
+    want = {k: v.clone() for k, v in params.items()}
+    chunks = torch.from_numpy(rng.normal(0, 1, (40, B, 60)).astype(np.float32)).to(cuda_device)
+    masks = torch.from_numpy((rng.uniform(size=(40, B)) > 0.3).astype(np.float32))
+    masks[::7] = 0.0
+    masks = masks.to(cuda_device)
+    tvec = torch.zeros(8, device=cuda_device)
+    tvec[2] = 1.0
+    before = tk.train_windows_k6.launches
+    loss, cnt = tk.train_windows_k6(params, chunks, masks, tvec, 6, 0.05)
+    torch.cuda.synchronize()
+    assert tk.train_windows_k6.launches == before + 1
+    wloss, wcnt = tk.train_windows_plain(want, chunks, masks, tvec, 6, 0.05)
+    for k in want:
+        assert float((params[k] - want[k]).abs().max()) <= 1e-4, k
+    assert abs(float(loss) - float(wloss)) <= 1e-4 * max(1.0, abs(float(wloss)))
+    assert float(cnt) == float(wcnt)
+    assert tk.k6_plan(60, 20, 12, 8, B)[1] == "shared memory"
+
+
+@pytest.mark.cuda
+def test_k6_refuses_widths_its_cluster_cannot_hold(cuda_device):
+    """H1 = 4096: the slices of w1 and w2 do not fit the cluster's shared
+    memory, so the wrapper raises before any launch."""
+    params = {k: v.contiguous() for k, v in
+              init_params(60, 4096, 256, 128, seed=0, device=cuda_device).items()}
+    chunks, masks, tvec = _k6_inputs(128, cuda_device)
+    before = tk.train_windows_k6.launches
+    with pytest.raises(ValueError, match="do not fit"):
+        tk.train_windows_k6(params, chunks, masks, tvec, 9, 0.05)
+    assert tk.train_windows_k6.launches == before
 
 
 @pytest.mark.cuda
