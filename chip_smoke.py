@@ -15,13 +15,21 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    golden clip, within 1e-3.
 3. Hold K5 against its plain version at the corpus training's shape
    (4096 windows, capacity 128) and a ragged batch, and at capacities 1024
-   and 4096: gradient sums within 1e-4 of the largest |grad|, the loss sum
-   within 1e-4 relative, the count exact, two runs bit-identical.  Hold K6
-   (one thread-block cluster per file) against its plain version on one
-   main-path file (a 10 s clip: 1280 chunk steps) at capacity 128 (w3 in
-   the cluster's shared memory) and 4096 (w3 in device memory): parameters
-   within 1e-3, the loss sum within 1e-3 relative, the count exact, two
-   launches bit-identical.
+   and 4096, in both forms: the gradient sums within 1e-4 of the largest
+   |grad|, the loss sum within 1e-4 relative, the count exact, two runs
+   bit-identical; the step form's parameters within 1e-5 of ``_apply_step``
+   over the plain sums.  The same on the pool route as the corpus phase runs
+   it (the labelled pool on the card, epoch 0's order and dropout mask, its
+   first step and its ragged last one of 1232 rows), whose plain gather must
+   equal the JAX package's host gather bit for bit.  Hold K6 (one
+   thread-block cluster per file) against its plain version on one
+   main-path file (a 10 s clip: 1280 chunk steps) at capacity 128 (every
+   slice in the cluster's shared memory) and 4096 (w3 in device memory):
+   parameters within 1e-3, the loss sum within 1e-3 relative, the count
+   exact, two launches bit-identical; and on three short files of 160 steps
+   on the other routes (chunks of 64 and of 48 windows, row tiles of
+   32; H1 = 4096, everything in device memory): within 1e-4, the count
+   exact, bit-identical.
    Then the frontend probe: ``autotune_frontend(force=True)`` with a fresh
    cache measures K2 against K1 and keeps the winner for the run.
 4. The default training run, ``python -m streamz_tpu_torch`` (``cli.main([])``),
@@ -31,7 +39,8 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    K5 (100 epochs, batch 4096), the discovery loop through K6 (one launch
    per processed file), ``model.npz`` and the relabelled lists.  Every
    kernel's launch count is zeroed just before and read just after; the
-   winner's, K5's and K6's must have moved.
+   winner's and K6's must have moved, K5's must be its 500 steps, and the
+   plain step (``_apply_step``) and the plain gather must not have run.
 5. ``--identify`` (``cli.main(["--identify", ...])``) of 64 held-out clips
    against the trained model, counts zeroed and read; prints how many clips
    it gives their own speaker.
@@ -56,16 +65,19 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    line is printed.  Then time every kernel per launch with CUDA events
    against its bound, its plain version and a library call, every frontend
    in windows/s, and the default run by phase (ingest, features, corpus,
-   discovery, finalize) with synchronised timers.  K6 is timed per file and
-   per live step at capacities 128 and 4096, beside the card's bound and
-   one cluster's (its operations over the cluster's share of the FP32
-   peak), and beside its plain version.  Last, one more pass of the
-   discovery loop over the training clips, on a copy of the trained model,
-   under ``torch.profiler``: its time per file split into K6, the other
-   kernels and the device's idle time.
+   discovery, finalize) with synchronised timers.  K5 is timed in both
+   forms, beside its 3xTF32 bound and the function's FP32 bound.  K6 is
+   timed per file and per live step on each route, beside the card's bound
+   and one cluster's (its operations over the cluster's share of the FP32
+   peak), and beside its plain version.  Then the corpus phase once more
+   under ``torch.profiler``, split into K5, the uploads and the idle
+   (host) time; last, one more pass of the discovery loop over the
+   training clips, on a copy of the trained model, under the profiler: its
+   time per file split into K6, the other kernels and the idle time.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(K6's entry also names its ``cluster`` size and ``w3_route``),
+(K5's entry also names its ``formulation`` and both forms' times, K6's its
+``cluster`` size, its main-path ``k6_route`` and every timed route),
 whose ``launches`` are each kernel's count in the one run of its own path
 (named in ``path``: the default run for K5, K6 and the probe's winner, the
 vote pipeline through its backend for the other MFCC kernels, the bench
@@ -107,8 +119,11 @@ RATE = 44_100
 SEED = 0
 K1_TOL = 1e-3          # base MFCCs (K1-K4 vs plain) and features: the golden gate
 K5_TOL = 1e-4          # gradient sums relative to the largest |grad|; loss sum relative
+K5_STEP_TOL = 1e-5     # K5's step form vs _apply_step on the plain sums, parameters abs
+K5_LR = 0.01           # the corpus phase's learning rate
 K6_TOL = 1e-3          # parameters (abs) and loss sum (relative) after 1280 steps
 K6_CAPS = (128, 4096)  # K6 with w3 in the cluster's shared memory, and in device memory
+K6_SHORT_TOL = 1e-4    # parameters (abs) and loss sum (relative) after 160 steps
 SMS = 132              # streaming multiprocessors of an H100 SXM
 K7_TOL = 1e-5          # probabilities, K7 vs model.forward (both FP32)
 GPU_VS_CPU_TOL = 1e-3  # features / embeddings / sims / margins, GPU vs CPU
@@ -125,11 +140,11 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(ops: float, nbytes: float, bf16_ops: float = 0.0):
+def bound(ops: float, nbytes: float, bf16_ops: float = 0.0, tf32_ops: float = 0.0):
     """The least time the card could take: (ms, 'operations' or 'bytes'),
-    ``ops`` FP32 operations on the CUDA cores and ``bf16_ops`` on the
-    tensor cores."""
-    t_ops = ops / PEAK_FP32 + bf16_ops / PEAK_BF16
+    ``ops`` FP32 operations on the CUDA cores and ``bf16_ops`` and
+    ``tf32_ops`` on the tensor cores."""
+    t_ops = ops / PEAK_FP32 + bf16_ops / PEAK_BF16 + tf32_ops / PEAK_TF32
     t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -244,13 +259,19 @@ def mlp_row_ops(F: int, H1: int, H2: int, cap: int) -> int:
 
 
 def k5_ops_and_bytes(w: torch.Tensor, dims):
-    """K5 on a batch: the rows that carry weight; x, labels and weights read
-    once, the parameters read once, the gradients and stats written once."""
+    """K5 on a step: (FP32 operations, the formulation's TF32 operations,
+    bytes) over the rows that carry weight.  The function's work is
+    ``mlp_row_ops`` per row; the kernel's formulation runs each product
+    three times in TF32 (3xTF32), its weight gradients with the bias row.
+    x, labels and weights read once, the parameters read once, the
+    gradients (or the updated parameters) and stats written once."""
     F, H1, H2, cap = dims
     n_params = F * H1 + H1 + H1 * H2 + H2 + H2 * cap + cap
     rows = int((w > 0).sum())
     nbytes = 4 * (w.numel() * (F + 2) + 2 * n_params + 2)
-    return rows * mlp_row_ops(*dims), nbytes
+    products = (F * H1 + H1 * H2 + H2 * cap + cap * H2 + H2 * H1
+                + (F + 1) * H1 + (H1 + 1) * H2 + (H2 + 1) * cap)
+    return rows * mlp_row_ops(*dims), 3 * 2 * rows * products, nbytes
 
 
 def k6_ops_and_bytes(masks: torch.Tensor, dims):
@@ -314,6 +335,7 @@ def main() -> int:
     sys.path.insert(0, str(HERE))
 
     from streamz_tpu_torch import _cuda_build, bench, config
+    from streamz_tpu_torch.app.corpus import train_corpus
     from streamz_tpu_torch.app.incremental import run_incremental
     from streamz_tpu_torch.device import resolve_device
     from streamz_tpu_torch.dsp import features, mfcc, mfcc_kernel
@@ -451,33 +473,80 @@ def main() -> int:
     k5_y = torch.from_numpy(pool_y[order]).to(dev)
     k5_w = torch.ones(len(order), device=dev)
     dims = (config.FEATURE_SIZE, config.HIDDEN1, config.HIDDEN2, 128)
-    k5_errs, k5_abs = {}, 0.0
+    k5_errs, k5_abs, k5_step_err = {}, 0.0, 0.0
+
+    def k5_check(label, params, rows, ns):
+        """K5's sums form twice and its step form once on ``rows`` against
+        the plain gather, gradients and step: returns the plain sums."""
+        nonlocal k5_abs, k5_step_err
+        g1, loss1, cnt1 = tk.corpus_rows_grads_k5(params, rows, ns)
+        g2, loss2, _ = tk.corpus_rows_grads_k5(params, rows, ns)
+        want, wloss, wcnt = tk.corpus_grads_plain(params, *tk.rows_plain(rows), ns)
+        stepped = {k: v.clone() for k, v in params.items()}
+        ref = {k: v.clone() for k, v in params.items()}
+        tk.corpus_step_k5(stepped, rows, ns, K5_LR)
+        tk._apply_step(ref, want, wloss, wcnt, K5_LR)
+        torch.cuda.synchronize()
+        if not all(torch.equal(g1[k], g2[k]) for k in g1) or float(loss1) != float(loss2):
+            fail(f"K5 is not bit-reproducible: {label}")
+        rel = max(float((g1[k] - want[k]).abs().max()) / max(1.0, float(want[k].abs().max()))
+                  for k in want)
+        loss_err = abs(float(loss1) - float(wloss)) / max(1.0, abs(float(wloss)))
+        step_err = max(float((stepped[k] - ref[k]).abs().max()) for k in ref)
+        k5_errs[label] = (rel, loss_err, step_err)
+        k5_abs = max(k5_abs, max(float((g1[k] - want[k]).abs().max()) for k in want))
+        k5_step_err = max(k5_step_err, step_err)
+        if (not math.isfinite(rel) or rel > K5_TOL or not math.isfinite(loss_err)
+                or loss_err > K5_TOL or float(cnt1) != float(wcnt)
+                or not math.isfinite(step_err) or step_err > K5_STEP_TOL):
+            fail(f"K5 disagrees with its plain version, {label}: grads {rel}, loss sum "
+                 f"{loss_err}, count {float(cnt1)} vs {float(wcnt)}, step {step_err}")
+        return want
+
     for cap, B in ((128, 4096), (128, 1531), (1024, 4096), (4096, 777)):
         params = init_params(*dims[:3], cap, seed=SEED, device=dev)
         ns = N_SPEAKERS if cap == 128 else cap - 28
         x, y, w = k5_x[:B], k5_y[:B], k5_w[:B]
         if cap != 128:  # labels over the whole capacity, some past the live classes
             y = torch.randint(0, cap + 50, (B,), generator=gen, device=dev).to(torch.int32)
-        g1, loss1, cnt1 = tk.corpus_grads_k5(params, x, y, w, ns)
-        g2, loss2, _ = tk.corpus_grads_k5(params, x, y, w, ns)
-        want, wloss, wcnt = tk.corpus_grads_plain(params, x, y, w, ns)
-        torch.cuda.synchronize()
-        if not all(torch.equal(g1[k], g2[k]) for k in g1) or float(loss1) != float(loss2):
-            fail(f"K5 is not bit-reproducible at capacity {cap}, B {B}")
-        rel = max(float((g1[k] - want[k]).abs().max()) / max(1.0, float(want[k].abs().max()))
-                  for k in want)
-        loss_err = abs(float(loss1) - float(wloss)) / max(1.0, abs(float(wloss)))
-        k5_errs[f"cap{cap}xB{B}"] = (rel, loss_err)
-        k5_abs = max(k5_abs, max(float((g1[k] - want[k]).abs().max()) for k in want))
-        if (not math.isfinite(rel) or rel > K5_TOL or not math.isfinite(loss_err)
-                or loss_err > K5_TOL or float(cnt1) != float(wcnt)):
-            fail(f"K5 disagrees with its plain version at capacity {cap}, B {B}: "
-                 f"grads {rel}, loss sum {loss_err}, count {float(cnt1)} vs {float(wcnt)}")
-    for k, (v, le) in k5_errs.items():
+        k5_check(f"cap{cap}xB{B}", params, tk.Batch(x, y, w), ns)
+    # The pool route as the corpus phase runs it: the labelled pool on the
+    # card, epoch 0's order and keep mask (dropout 0.2) drawn as train_corpus
+    # draws them, its first step and its ragged last one.
+    pool_dev = torch.from_numpy(pool).to(dev)
+    pool_y_dev = torch.from_numpy(pool_y).to(dev)
+    drng = np.random.default_rng(SEED)
+    perm = drng.permutation(len(pool)).astype(np.int32)
+    keep_all = drng.random(pool.shape, dtype=np.float32) >= config.DEFAULT_DROPOUT
+    k5_steps = -(-len(pool) // 4096)
+    order_all = np.zeros(k5_steps * 4096, np.int32)
+    order_all[:len(pool)] = perm
+    order_dev = torch.from_numpy(order_all).to(dev)
+    keep_dev = torch.from_numpy(keep_all.view(np.uint8)).to(dev)
+    k5_pool_rows = {}
+    for s_ in (0, k5_steps - 1):
+        lo, real = s_ * 4096, min(4096, len(pool) - s_ * 4096)
+        rows = tk.PoolRows(pool_dev, pool_y_dev, order_dev[lo:lo + 4096],
+                           keep_dev[lo:lo + real], real)
+        k5_pool_rows[real] = rows
+        want = k5_check(f"pool step {s_} ({real} real rows of 4096, dropout "
+                        f"{config.DEFAULT_DROPOUT:g})", init_params(*dims[:3], 128, seed=SEED,
+                                                                    device=dev), rows, N_SPEAKERS)
+        # The plain gather against the host gather of the JAX package's route.
+        hx = pool[order_all[lo:lo + 4096]]
+        hw = (np.arange(4096) < real).astype(np.float32)
+        hx[:real] = hx[:real] * keep_all[lo:lo + real]
+        hw = hw * np.any(hx != 0.0, axis=-1)
+        gx, _, gw = tk.rows_plain(rows)
+        if not (np.array_equal(gx.cpu().numpy(), hx) and np.array_equal(gw.cpu().numpy(), hw)):
+            fail(f"the plain pool gather differs from the host gather at step {s_}")
+    for k, (v, le, se) in k5_errs.items():
         print(f"[k5-vs-plain] {k}: max err / max |grad| {v:.3e}, loss sum err "
-              f"{le:.3e} (bound {K5_TOL:g} each); two runs bit-identical")
+              f"{le:.3e} (bound {K5_TOL:g} each); step form params max abs err {se:.3e} "
+              f"(bound {K5_STEP_TOL:g}); two runs bit-identical")
     report["k5_max_rel_err"] = k5_errs
     report["k5_max_abs_err"] = k5_abs
+    report["k5_step_max_abs_err"] = k5_step_err
 
     file_w = feats[0]
     n_pad = config.next_pow2(-(-len(file_w) // config.BATCH_SIZE)) * config.BATCH_SIZE
@@ -519,9 +588,52 @@ def main() -> int:
             fail(f"K6 disagrees with its plain version at capacity {cap}: params "
                  f"{err}, loss sum {loss_err}, count {float(gc)} vs {float(wc)}")
         k6_errs[cap] = (err, loss_err)
-    if [r for _, r in k6_plans.values()] != ["shared memory", "device memory"]:
-        fail(f"K6's w3 routes at capacities {K6_CAPS}: {k6_plans}")
-    k6_err = max(e for e, _ in k6_errs.values())
+    if [r for _, r in k6_plans.values()] != ["shared memory", "w3 in device memory"]:
+        fail(f"K6's routes at capacities {K6_CAPS}: {k6_plans}")
+    # K6 on its other routes, each on a short file of this clip's
+    # windows (5 epochs, 160 chunk steps): chunks of 64 and 48 windows (row
+    # tiles of 32, the second of 48's ragged) and H1 = 4096 (every weight
+    # and activation in device memory).
+    k6_short = {}
+    for label, (h1w, B, npad, nv) in {"B=64": (config.HIDDEN1, 64, 2048, len(file_w)),
+                                      "B=48": (config.HIDDEN1, 48, 1536, len(file_w)),
+                                      "H1=4096": (4096, 8, 256, 200)}.items():
+        win = torch.zeros((npad, config.FEATURE_SIZE), device=dev)
+        win[:nv] = torch.from_numpy(file_w[:nv]).to(dev)
+        d_s, v_s = file_epoch_views(win, nv, prng.PRNGKey(2, dev), config.DEFAULT_DROPOUT,
+                                    config.INCREMENTAL_EPOCHS)
+        sdims = (config.FEATURE_SIZE, h1w, config.HIDDEN2, 128)
+        entry = {"chunks": d_s.reshape(-1, B, config.FEATURE_SIZE).contiguous(),
+                 "masks": v_s.reshape(-1, B).contiguous(), "dims": sdims,
+                 "params": init_params(*sdims, seed=SEED, device=dev),
+                 "plan": tk.k6_plan(*sdims, B), "B": B}
+        args = (entry["chunks"], entry["masks"], k6_tvecs[128], N_SPEAKERS + 1,
+                config.LR_EARLY)
+        got_p, again_p, want_p = ({k: v.clone() for k, v in entry["params"].items()}
+                                  for _ in range(3))
+        gl, gc = tk.train_windows_k6(got_p, *args)
+        al, ac = tk.train_windows_k6(again_p, *args)
+        wl, wc = tk.train_windows_plain(want_p, *args)
+        torch.cuda.synchronize()
+        if (not all(torch.equal(got_p[k], again_p[k]) for k in got_p)
+                or float(gl) != float(al) or float(gc) != float(ac)):
+            fail(f"K6 is not bit-reproducible at {label}")
+        err = max(float((got_p[k] - want_p[k]).abs().max()) for k in want_p)
+        loss_err = abs(float(gl) - float(wl)) / max(1.0, abs(float(wl)))
+        entry.update(err=err, loss_err=loss_err)
+        print(f"[k6-vs-plain] {label} ({sdims[1]} -> {sdims[2]}, chunks of {B}; "
+              f"{entry['plan'][0]} CTAs, route: {entry['plan'][1]}): "
+              f"{entry['chunks'].shape[0]} chunk steps: params max abs err {err:.3e}, loss "
+              f"sum err {loss_err:.3e} (bound {K6_SHORT_TOL:g} each); count {float(gc):g} vs "
+              f"{float(wc):g}; two launches bit-identical")
+        if (not math.isfinite(err) or err > K6_SHORT_TOL or not math.isfinite(loss_err)
+                or loss_err > K6_SHORT_TOL or float(gc) != float(wc)):
+            fail(f"K6 disagrees with its plain version at {label}: params {err}, loss sum "
+                 f"{loss_err}, count {float(gc)} vs {float(wc)}")
+        k6_short[label] = entry
+    if [e["plan"][1] for e in k6_short.values()] != ["w3 in device memory"] * 2 + ["device memory"]:
+        fail(f"K6's routes at the short files: {[e['plan'] for e in k6_short.values()]}")
+    k6_err = max([e for e, _ in k6_errs.values()] + [e["err"] for e in k6_short.values()])
     report["k6_max_abs_err"] = {c: e for c, (e, _) in k6_errs.items()}
     report["k6_loss_err"] = {c: le for c, (_, le) in k6_errs.items()}
 
@@ -561,9 +673,26 @@ def main() -> int:
         # 4. The main path: the default training run through the CLI.
         os.chdir(work)
         names = write_corpus(train_pcm, spk, LABELLED_PER_SPEAKER, "train")
+        # The plain gather and the plain step must not run on the CUDA path:
+        # count their calls through the default run.
+        plain_calls = {"_apply_step": 0, "rows_plain": 0}
+        plain_fns = {n: getattr(tk, n) for n in plain_calls}
+
+        def counted(name):
+            def call(*a, **k):
+                plain_calls[name] += 1
+                return plain_fns[name](*a, **k)
+            return call
+
+        for n_ in plain_calls:
+            setattr(tk, n_, counted(n_))
         zero_counts()
         t0 = time.perf_counter()
-        rc, lines, run = run_cli([])
+        try:
+            rc, lines, run = run_cli([])
+        finally:
+            for n_, fn in plain_fns.items():
+                setattr(tk, n_, fn)
         train_s = time.perf_counter() - t0
         launches = read_counts("default run")
         phases, margins = run["phase_seconds"], run["decision_margins"]
@@ -580,6 +709,11 @@ def main() -> int:
                 or launches["K6"] != processed or processed != len(names)):
             fail(f"the default run's launches {launches}: expected {win_kid} >= 1, "
                  f"K5 = {steps}, K6 = {len(names)} (one per file)")
+        print(f"[train] K5 step launches {launches['K5']}; plain ops on the CUDA path: "
+              f"_apply_step {plain_calls['_apply_step']}, plain gather "
+              f"{plain_calls['rows_plain']} (must be 0)")
+        if any(plain_calls.values()):
+            fail(f"the default run ran plain corpus ops on the card: {plain_calls}")
         net = checkpoint.load(config.MODEL_PATH, device=dev)
         relabelled = filelists.load_train_files(config.TRAIN_FILE_LIST)
         targets = filelists.load_target_files(config.TARGET_FILE_LIST)
@@ -595,6 +729,7 @@ def main() -> int:
               f"{kept} with their own speaker's id (informational); smallest "
               f"decision margin {min(finite) if finite else float('inf'):.3e}")
         report.update({"train_s": train_s, "train_launches": launches,
+                       "train_plain_calls": plain_calls,
                        "train_phase_s": phases, "train_speakers": net.num_speakers,
                        "train_own_label": kept})
 
@@ -906,15 +1041,36 @@ def main() -> int:
 
     k5_params = init_params(*dims[:3], 128, seed=SEED, device=dev)
     k5_args = (k5_params, k5_x, k5_y, k5_w, N_SPEAKERS)
-    k5_ops, k5_bytes = k5_ops_and_bytes(k5_w, dims)
-    k5_bound_ms, k5_bound_by = bound(k5_ops, k5_bytes)
+    k5_ops, k5_tf32, k5_bytes = k5_ops_and_bytes(k5_w, dims)
+    k5_fp32_ms, k5_fp32_by = bound(k5_ops, k5_bytes)
+    k5_bound_ms, k5_bound_by = bound(0.0, k5_bytes, tf32_ops=k5_tf32)
     k5_ms = time_ms(lambda: tk.corpus_grads_k5(*k5_args), iters=50)
     k5_plain_ms = time_ms(lambda: tk.corpus_grads_plain(*k5_args), iters=50)
     k5_ms_2 = time_ms(lambda: tk.corpus_grads_k5(*k5_args), iters=50)
-    print(f"[time] K5 corpus_grads [4096, 60] cap 128: {k5_ms:.3f} ms, again "
-          f"{k5_ms_2:.3f} ms; plain {k5_plain_ms:.3f} ms; bound {k5_bound_ms:.4f} ms "
-          f"by {k5_bound_by} ({k5_ops / 1e9:.2f} GFLOP, {k5_bytes / 1e6:.2f} MB); "
-          f"{k5_ops / (min(k5_ms, k5_ms_2) * 1e-3) / 1e12:.1f} TFLOP/s | {card}")
+    # The step form on the main path's first step: the pool route, dropout.
+    step_rows = k5_pool_rows[4096]
+    step_p = {k: v.clone() for k, v in k5_params.items()}
+    plain_p = {k: v.clone() for k, v in k5_params.items()}
+    s_ops, s_tf32, s_bytes = k5_ops_and_bytes(tk.rows_plain(step_rows).weights, dims)
+    k5_step_bound_ms, _ = bound(0.0, s_bytes, tf32_ops=s_tf32)
+    k5_step_ms = time_ms(lambda: tk.corpus_step_k5(step_p, step_rows, N_SPEAKERS, K5_LR),
+                         iters=50)
+    k5_step_plain_ms = time_ms(lambda: tk._apply_step(
+        plain_p, *tk.corpus_grads_plain(plain_p, *tk.rows_plain(step_rows), N_SPEAKERS),
+        K5_LR), iters=20)
+    k5_step_ms_2 = time_ms(lambda: tk.corpus_step_k5(step_p, step_rows, N_SPEAKERS, K5_LR),
+                           iters=50)
+    print(f"[time] K5 sums form [4096, 60] cap 128: {k5_ms:.4f} ms, again {k5_ms_2:.4f} ms; "
+          f"plain {k5_plain_ms:.3f} ms; 3xTF32 bound {k5_bound_ms:.4f} ms by {k5_bound_by} "
+          f"({k5_tf32 / 1e9:.2f} GFLOP TF32), FP32 bound {k5_fp32_ms:.4f} ms by "
+          f"{k5_fp32_by} ({k5_ops / 1e9:.2f} GFLOP, {k5_bytes / 1e6:.2f} MB); "
+          f"{k5_ops / (min(k5_ms, k5_ms_2) * 1e-3) / 1e12:.1f} TFLOP/s of the function | "
+          f"{card}")
+    print(f"[time] K5 step form, pool route, step 0 of the corpus phase (4096 rows, dropout "
+          f"{config.DEFAULT_DROPOUT:g}, {s_ops / mlp_row_ops(*dims):.0f} with weight): "
+          f"{k5_step_ms:.4f} ms, again {k5_step_ms_2:.4f} ms; plain gather + sums + "
+          f"_apply_step {k5_step_plain_ms:.3f} ms; 3xTF32 bound {k5_step_bound_ms:.4f} ms | "
+          f"{card}")
 
     live = int((k6_masks.sum(dim=1) > 0).sum())
     k6_timed = {}
@@ -930,11 +1086,11 @@ def main() -> int:
         k6_ms = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=10)
         k6_plain_ms = time_ms(lambda: tk.train_windows_plain(*k6_args), iters=1)
         k6_ms_2 = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=10)
-        k6_timed[cap] = {"ms": [k6_ms, k6_ms_2], "plain_ms": k6_plain_ms,
-                         "bound_ms": k6_bound_ms, "bound_by": k6_bound_by,
-                         "cluster_bound_ms": cluster_bound_ms, "cluster": cluster,
-                         "w3_route": route}
-        print(f"[time] K6 file_train at capacity {cap} ({cluster} CTAs, w3 in {route}), "
+        k6_timed[f"cap{cap}"] = {"ms": [k6_ms, k6_ms_2], "plain_ms": k6_plain_ms,
+                                 "bound_ms": k6_bound_ms, "bound_by": k6_bound_by,
+                                 "cluster_bound_ms": cluster_bound_ms, "cluster": cluster,
+                                 "route": route, "steps": int(k6_chunks.shape[0])}
+        print(f"[time] K6 file_train at capacity {cap} ({cluster} CTAs, route: {route}), "
               f"{k6_chunks.shape[0]} chunks ({live} with a surviving window): "
               f"{k6_ms:.3f} ms, again {k6_ms_2:.3f} ms per file "
               f"({min(k6_ms, k6_ms_2) * 1e3 / live:.2f} us per live step); plain "
@@ -942,6 +1098,76 @@ def main() -> int:
               f"one cluster's bound {cluster_bound_ms:.4f} ms ({cluster} of {SMS} SMs "
               f"at the FP32 peak; {k6_ops / 1e9:.2f} GFLOP, {k6_bytes / 1e6:.2f} MB) "
               f"| {card}")
+    for label, e in k6_short.items():
+        k6_p = {k: v.clone() for k, v in e["params"].items()}
+        k6_args = (k6_p, e["chunks"], e["masks"], k6_tvecs[128], N_SPEAKERS + 1,
+                   config.LR_EARLY)
+        k6_ops, k6_bytes = k6_ops_and_bytes(e["masks"], e["dims"])
+        k6_bound_ms, k6_bound_by = bound(k6_ops, k6_bytes)
+        cluster, route = e["plan"]
+        cluster_bound_ms = k6_ops / (PEAK_FP32 * cluster / SMS) * 1e3
+        k6_ms = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=5)
+        k6_plain_ms = time_ms(lambda: tk.train_windows_plain(*k6_args), iters=1)
+        k6_ms_2 = time_ms(lambda: tk.train_windows_k6(*k6_args), iters=5)
+        s_live = int((e["masks"].sum(dim=1) > 0).sum())
+        k6_timed[label] = {"ms": [k6_ms, k6_ms_2], "plain_ms": k6_plain_ms,
+                           "bound_ms": k6_bound_ms, "bound_by": k6_bound_by,
+                           "cluster_bound_ms": cluster_bound_ms, "cluster": cluster,
+                           "route": route, "steps": int(e["chunks"].shape[0])}
+        print(f"[time] K6 file_train {label} ({e['dims'][1]} -> {e['dims'][2]}, chunks of "
+              f"{e['B']}; route: {route}), {e['chunks'].shape[0]} chunks ({s_live} live): "
+              f"{k6_ms:.3f} ms, again {k6_ms_2:.3f} ms per file "
+              f"({min(k6_ms, k6_ms_2) * 1e3 / s_live:.2f} us per live step); plain "
+              f"{k6_plain_ms:.3f} ms; card bound {k6_bound_ms:.4f} ms, one cluster's "
+              f"{cluster_bound_ms:.4f} ms | {card}")
+
+    mark("corpus pass")
+    # Where the corpus phase's time goes: the phase once more (100 epochs of
+    # the labelled pool, a fresh net) under torch.profiler, its wall time
+    # split into K5's kernels, the uploads and the device's idle time.
+    from streamz_tpu_torch.nn.model import SpeakerNet
+
+    corpus_net = SpeakerNet.new(output=N_SPEAKERS, device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_corpus(corpus_net, pool, pool_y, epochs=config.TRAIN_EPOCHS, lr=K5_LR,
+                     dropout=config.DEFAULT_DROPOUT, seed=0)
+        torch.cuda.synchronize()
+        corpus_s = time.perf_counter() - t0
+    corpus_k5 = tk.corpus_grads_k5.launches
+    # The host's own share: the same numpy draws (permutation and dropout
+    # mask per epoch, in train_corpus's order) with no device work.
+    t0 = time.perf_counter()
+    draw_rng = np.random.default_rng(0)
+    for _ in range(config.TRAIN_EPOCHS):
+        draw_rng.permutation(len(pool)).astype(np.int32)
+        draw_rng.random(pool.shape, dtype=np.float32) >= config.DEFAULT_DROPOUT
+    draws_s = time.perf_counter() - t0
+    c_kernels = [(e.key, e.self_device_time_total * 1e-6, e.count)
+                 for e in prof.key_averages() if e.self_device_time_total > 0]
+    c_busy = sum(t for _, t, _ in c_kernels)
+    k5_names = ("layer1_kernel", "layer_kernel", "softmax_kernel", "grads_kernel",
+                "finish_kernel")
+    c_k5 = sum(t for k, t, _ in c_kernels if any(n in k for n in k5_names))
+    corpus_split = {"wall_s": corpus_s, "device_busy_s": c_busy, "k5_s": c_k5,
+                    "other_device_s": c_busy - c_k5, "idle_s": corpus_s - c_busy,
+                    "k5_launches": corpus_k5, "host_draws_s": draws_s}
+    print(f"[time] corpus pass under the profiler ({config.TRAIN_EPOCHS} epochs, "
+          f"{corpus_k5} K5 step launches): {corpus_s:.3f} s = K5 {c_k5:.3f} s + other "
+          f"device work {c_busy - c_k5:.3f} s + idle (host) {corpus_s - c_busy:.3f} s; "
+          f"device busy {c_busy / corpus_s:.1%}; the host's numpy draws alone "
+          f"{draws_s:.3f} s | {card}")
+    if corpus_k5 != steps:
+        fail(f"the corpus pass launched K5 {corpus_k5} times, expected {steps}")
+    k5_parts = sorted(((k.replace("(anonymous namespace)::", "").replace("void ", "")[:48],
+                        t / steps * 1e6, n // steps) for k, t, n in c_kernels
+                       if any(n_ in k for n_ in k5_names)), key=lambda e: -e[1])
+    print("[time] K5's kernels in the corpus pass, us per step: " + ", ".join(
+        f"{k} {t:.1f} (x{n})" for k, t, n in k5_parts) + f" | {card}")
+    corpus_split["k5_kernels_us_per_step"] = k5_parts
+    report["corpus_pass"] = corpus_split
 
     mark("discovery pass")
     # Where a discovery file's time goes: one more pass of the discovery loop
@@ -1002,6 +1228,9 @@ def main() -> int:
         "gpu_vs_cpu": checks, "k1_ms": [k1_ms, k1_ms_2], "k1_plain_ms": k1_plain_ms,
         "k1_matmul_dft_ms": k1_lib_ms, "k1_tf32_bound_ms": tf32_bound_ms,
         "k5_ms": [k5_ms, k5_ms_2], "k5_plain_ms": k5_plain_ms,
+        "k5_step_ms": [k5_step_ms, k5_step_ms_2], "k5_step_plain_ms": k5_step_plain_ms,
+        "k5_bounds_ms": {"fp32": k5_fp32_ms, "3xtf32": k5_bound_ms,
+                         "step_3xtf32": k5_step_bound_ms},
         "k6": k6_timed, "k6_live_chunks": live,
         "k6_chunks": int(k6_chunks.shape[0]), "total_s": total_s, "timed": timed,
         "script_s_by_phase": by_phase,
@@ -1017,17 +1246,24 @@ def main() -> int:
          "source": "streamz_tpu_torch/csrc/corpus_grads.cu",
          "replaces": "streamz_tpu/nn/pallas_train.py:67",
          "launches": launches["K5"], "max_abs_err": k5_abs,
-         "ms": min(k5_ms, k5_ms_2), "plain_ms": k5_plain_ms, "bound_ms": k5_bound_ms,
-         "bound_by": k5_bound_by, "library_ms": None},
+         "ms": min(k5_step_ms, k5_step_ms_2), "plain_ms": k5_step_plain_ms,
+         "bound_ms": k5_step_bound_ms, "bound_by": "operations", "library_ms": None,
+         "formulation": "3xTF32 on the tensor cores (mma.sync m16n8k8); step form, rows "
+                        "gathered on the card",
+         "sums_ms": min(k5_ms, k5_ms_2), "sums_plain_ms": k5_plain_ms,
+         "sums_bound_ms": k5_bound_ms, "fp32_bound_ms": k5_fp32_ms,
+         "step_max_abs_err": k5_step_err},
         {"name": "train_windows_k6", "route": "cuda",
          "source": "streamz_tpu_torch/csrc/file_train.cu",
          "replaces": "streamz_tpu/nn/pallas_train.py:237",
          "launches": launches["K6"], "max_abs_err": k6_err,
-         "ms": min(k6_timed[128]["ms"]), "plain_ms": k6_timed[128]["plain_ms"],
-         "bound_ms": k6_timed[128]["bound_ms"], "bound_by": k6_timed[128]["bound_by"],
-         "library_ms": None, "cluster": k6_timed[128]["cluster"],
-         "w3_route": k6_timed[128]["w3_route"],
-         "cluster_bound_ms": k6_timed[128]["cluster_bound_ms"]},
+         "ms": min(k6_timed["cap128"]["ms"]), "plain_ms": k6_timed["cap128"]["plain_ms"],
+         "bound_ms": k6_timed["cap128"]["bound_ms"],
+         "bound_by": k6_timed["cap128"]["bound_by"], "library_ms": None,
+         "cluster": k6_timed["cap128"]["cluster"], "k6_route": k6_timed["cap128"]["route"],
+         "cluster_bound_ms": k6_timed["cap128"]["cluster_bound_ms"],
+         "routes": {k: {"route": v["route"], "steps": v["steps"], "ms": min(v["ms"]),
+                        "bound_ms": v["bound_ms"]} for k, v in k6_timed.items()}},
     ]}
     for kid, name, src, replaces, err in (
             ("K2", "mfcc_base_v3", "mfcc_v3.cu", "dsp/pallas_mfcc.py:383",

@@ -3,11 +3,16 @@ of the default run), on one device.
 
 The port of ``streamz_tpu/app/corpus.py`` and the single-device case of
 ``streamz_tpu/parallel/data_parallel.py``: one shuffled window pool,
-batches of 4096, each step one K5 launch on CUDA (``corpus_step``) and the
-update ``p -= lr / max(count, 1) * grad`` in place.  Shuffles and dropout
-masks come from ``np.random.default_rng(seed)`` in the JAX package's order,
-so both packages train on the same batches.  The per-step losses stay on
-the device; the host reads them once per epoch.
+batches of 4096, each step one launch of K5's step form on CUDA
+(``corpus_step_k5``), which gathers the step's rows from the pool on the
+card and applies ``p -= lr / max(count, 1) * grad`` in place.  The pool and
+its labels go to the device once; per epoch only the permutation (int32)
+and the dropout keep mask (one byte per feature) go up, from pinned
+buffers without blocking.  Shuffles and dropout masks come from
+``np.random.default_rng(seed)`` in the JAX package's order, so both
+packages train on the same batches.  The per-step losses stay on the
+device; the host reads them once, at the end.  On the CPU the same route
+runs in plain torch (``train_kernels.rows_plain``).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 
 from streamz_tpu_torch import config
 from streamz_tpu_torch.nn.model import SpeakerNet
-from streamz_tpu_torch.nn.train import corpus_step
+from streamz_tpu_torch.nn.train_kernels import PoolRows, corpus_step_k5
 
 
 def build_window_pool(
@@ -65,24 +70,32 @@ def train_corpus(
     rng = np.random.default_rng(seed)
     params = net.working_params()
     ns = torch.tensor(net.num_speakers, dtype=torch.int32, device=dev)
-    losses: List[float] = []
+    pool_x = torch.from_numpy(np.ascontiguousarray(windows, np.float32)).to(dev)
+    pool_y = torch.from_numpy(np.ascontiguousarray(labels, np.int32)).to(dev)
+    # Positions past n are the epoch's padding: pool row 0, weight 0.
+    order = torch.zeros(n_pad, dtype=torch.int32, device=dev)
+    keep = (torch.empty((n, pool_x.shape[1]), dtype=torch.uint8, device=dev)
+            if dropout > 0.0 else None)
+    epoch_losses = []
     for _ in range(int(epochs)):
-        order = rng.permutation(n)
-        idx = np.concatenate([order, np.zeros(n_pad - n, np.int64)])
-        x = windows[idx]
-        w = (np.arange(n_pad) < n).astype(np.float32)
-        if dropout > 0.0:
-            keep = rng.random((n,) + x.shape[1:], dtype=np.float32) >= dropout
-            x[:n] = x[:n] * keep
-            w = w * np.any(x != 0.0, axis=-1)
-        xb = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev)
-        yb = torch.from_numpy(np.ascontiguousarray(labels[idx], np.int32)).to(dev)
-        wb = torch.from_numpy(w.astype(np.float32)).to(dev)
+        order[:n].copy_(_staged(rng.permutation(n).astype(np.int32), dev), non_blocking=True)
+        if keep is not None:
+            drawn = rng.random((n, pool_x.shape[1]), dtype=np.float32) >= dropout
+            keep.copy_(_staged(drawn.view(np.uint8), dev), non_blocking=True)
         step_losses = []
         for s in range(steps):
-            rows = slice(s * batch_size, (s + 1) * batch_size)
-            _, loss = corpus_step(params, xb[rows], yb[rows], wb[rows], ns, lr)
-            step_losses.append(loss)
-        losses.append(float(torch.stack(step_losses).mean()))
+            lo, real = s * batch_size, min(batch_size, n - s * batch_size)
+            rows = PoolRows(pool_x, pool_y, order[lo:lo + batch_size],
+                            None if keep is None else keep[lo:lo + real], real)
+            step_losses.append(corpus_step_k5(params, rows, ns, lr))
+        epoch_losses.append(torch.stack(step_losses).mean())
     net.params = params
-    return losses
+    return [float(v) for v in torch.stack(epoch_losses).tolist()] if epoch_losses else []
+
+
+def _staged(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` as a tensor to copy to ``dev``: pinned for a CUDA device, so the
+    copy does not block the host (the caching host allocator keeps the
+    buffer until the copy is done)."""
+    t = torch.from_numpy(a)
+    return t.pin_memory() if dev.type == "cuda" else t

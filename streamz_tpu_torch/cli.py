@@ -120,8 +120,15 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
     and ``decision_margins`` (one per processed file, app/device_loop.py)."""
     args = list(sys.argv[1:] if argv is None else argv)
     if "--help" in args or "-h" in args:
-        print((__doc__ or "usage: python -m streamz_tpu_torch [--identify "
-               "<file>...] [--device cuda|cpu]").strip())
+        try:
+            print((__doc__ or "usage: python -m streamz_tpu_torch [--identify "
+                   "<file>...] [--device cuda|cpu]").strip())
+            sys.stdout.flush()
+        except BrokenPipeError:  # `... --help | head` closed the pipe
+            try:
+                sys.stdout.close()
+            except BrokenPipeError:
+                pass
         return 0
 
     identify_paths: List[str] = []

@@ -14,7 +14,9 @@
 //
 // updating the six parameter tensors IN PLACE, and writes stats [2].  A
 // chunk with no surviving window leaves the parameters and stats as they are
-// (the TPU kernel's zero scale), so it is skipped outright.
+// (the TPU kernel's zero scale), so it is skipped outright.  Like the TPU
+// kernel it takes any chunk size and any widths (F <= 64, as the TPU
+// kernel's input padding; every width a multiple of 4).
 //
 // What bounds it on this card: a step is about 4.4 M multiply-adds at
 // capacity 128, but the steps are strictly sequential and each layer needs
@@ -49,9 +51,22 @@
 // every cross-CTA sum runs in rank order, so two launches on the same
 // inputs give the same bits.  FP32 FMA on the CUDA cores.
 //
-// When a CTA's w3 slice does not fit beside the rest (capacity past about
-// 2048 at 16 CTAs), w3 and the logits stay in device memory (L2) and each
-// CTA reads and updates its own column slice there: the W3_GLOBAL variant.
+// Routes, by what fits in a CTA's shared memory (route_for):
+//   0 kResident:  every slice and buffer in shared memory;
+//   1 kW3Global:  w3 and the logits in device memory (L2), each CTA reading
+//                 and updating its own column slice there (capacity past
+//                 about 2048 at 16 CTAs, and chunks of 17 or more rows);
+//   2 kGlobal:    w1, w2 and w3 in place in device memory, and the
+//                 activations and exchange buffers [T, H2] in a device
+//                 scratch, one region per CTA; the exchanges read and write
+//                 the peers' regions through L2 (wide layers, e.g.
+//                 H1 = 4096, or an H2 whose [T, H2] buffers do not fit).
+// Chunks of more than 32 windows run as row tiles of 32 within a step
+// (T = 32, tiles = ceil(B / 32)): every tile's forward and backward read the
+// weights as they were before the chunk, each CTA adds its slices'
+// gradient sums tile by tile in order into a device accumulator, and the
+// last tile applies p -= lr / count * (sum) with the count over all B rows.
+// Chunks of up to 32 windows keep the one-tile step.
 //
 // Plain C interface, loaded with ctypes from streamz_tpu_torch/nn/
 // train_kernels.py, which builds this file with nvcc at first use.
@@ -69,7 +84,14 @@ constexpr int kThreads = 512;
 constexpr int kMaxSmem = 232448;    // 227 KB, the most a Hopper block may have
 constexpr int kPartFloats = 4096;   // the products' split-reduction scratch
 constexpr int kMaxParts = 16;
+constexpr int kTileRows = 32;       // rows of the widest instance; wider chunks tile
 constexpr float kMaskLogit = -1e30f;  // streamz_tpu/nn/model.py:MASK_LOGIT
+
+enum Route { kResident = 0, kW3Global = 1, kGlobal = 2 };
+// How a step's weight gradient is applied: the SGD step itself (one tile per
+// chunk), or, over a chunk's row tiles, written, added, then added and
+// applied.
+enum Update { kSgd = 0, kAccWrite = 1, kAccAdd = 2, kSgdAcc = 3 };
 
 __host__ __device__ inline long long round4(long long n) { return (n + 3) / 4 * 4; }
 // A CTA's share of n units, a multiple of 4.
@@ -81,7 +103,8 @@ __host__ __device__ inline int slice_of(int n) {
 __host__ __device__ inline int padded(int n) { return n + (36 - n % 32) % 32; }
 
 // The shared-memory carve of one CTA (offsets in floats), the same in every
-// CTA of the cluster, so a peer's buffer sits at the same offset.
+// CTA of the cluster, so a peer's buffer sits at the same offset.  -1: the
+// buffer lives in device memory on this route.
 struct Layout {
   int jn, kn, cn, ldw2, ldw3, ldl;
   long long x, m, w1, b1, w2, b2, w3, b3, tg, h1, dh1, p, h2, dh2, l, st, ms, rep,
@@ -95,52 +118,78 @@ __host__ __device__ inline long long take(long long& at, long long n) {
 }
 
 __host__ __device__ inline Layout make_layout(int F, int H1, int H2, int cap, int T,
-                                              bool w3_global) {
+                                              int route) {
   Layout L;
   long long o = 0;
+  const bool w3g = route != kResident, all = route == kGlobal;
   L.jn = slice_of(H1);
   L.kn = slice_of(H2);
   L.cn = slice_of(cap);
-  L.ldw2 = padded(H2);
-  L.ldw3 = w3_global ? cap : padded(L.cn);
-  L.ldl = w3_global ? cap : L.cn;
+  L.ldw2 = all ? H2 : padded(H2);
+  L.ldw3 = w3g ? cap : padded(L.cn);
+  L.ldl = w3g ? cap : L.cn;
   L.x = take(o, 2LL * T * F);  // two chunk buffers: the step's and the prefetch
   L.m = take(o, 2LL * T);
-  L.w1 = take(o, 1LL * F * L.jn);
+  L.w1 = all ? -1 : take(o, 1LL * F * L.jn);
   L.b1 = take(o, L.jn);
-  L.w2 = take(o, 1LL * L.jn * L.ldw2);
+  L.w2 = all ? -1 : take(o, 1LL * L.jn * L.ldw2);
   L.b2 = take(o, L.kn);
-  L.w3 = w3_global ? -1 : take(o, 1LL * H2 * L.ldw3);
+  L.w3 = w3g ? -1 : take(o, 1LL * H2 * L.ldw3);
   L.b3 = take(o, L.cn);
   L.tg = take(o, L.cn);
-  L.h1 = take(o, 1LL * T * L.jn);
-  L.dh1 = take(o, 1LL * T * L.jn);
-  L.p = take(o, 1LL * T * H2);   // partial products, read by every peer
-  L.h2 = take(o, 1LL * T * H2);  // written by every peer
-  L.dh2 = take(o, 1LL * T * H2);
-  L.l = w3_global ? -1 : take(o, 1LL * T * L.cn);
+  L.h1 = all ? -1 : take(o, 1LL * T * L.jn);
+  L.dh1 = all ? -1 : take(o, 1LL * T * L.jn);
+  L.p = all ? -1 : take(o, 1LL * T * H2);   // partial products, read by every peer
+  L.h2 = all ? -1 : take(o, 1LL * T * H2);  // written by every peer
+  L.dh2 = all ? -1 : take(o, 1LL * T * H2);
+  L.l = w3g ? -1 : take(o, 1LL * T * L.cn);
   L.st = take(o, 2LL * T);  // per-row (max, sum exp) of the CTA's columns
   L.ms = take(o, 2LL * T);  // the same over all columns
   L.rep = take(o, T);
-  // the products' split reductions, and the exchanges' gathers
-  const long long gather = 1LL * kCluster * T * L.kn;
+  // the products' split reductions, and the exchanges' gathers (which the
+  // device-memory route reads in place)
+  const long long gather = all ? 0LL : 1LL * kCluster * T * L.kn;
   L.part = take(o, gather > kPartFloats ? gather : kPartFloats);
-  L.loss = take(o, 4);
+  L.loss = take(o, 4);  // the loss sum; [1]: the count of a chunk of several row tiles
   L.floats = o;
   return L;
 }
 
-long long smem_bytes(int F, int H1, int H2, int cap, int T, bool w3_global) {
-  return 4LL * make_layout(F, H1, H2, cap, T, w3_global).floats;
+// The device scratch of one launch (offsets in floats; -1: not needed): the
+// logits [T, cap] (routes 1 and 2, a column slice per CTA), each CTA's
+// activations (route 2: h1, dh1 [T, jn]; the partial, h2, dh2 [T, H2]) and
+// each CTA's gradient accumulators (chunks of several row tiles: dw1 [F, jn],
+// dw2 [jn, H2], dw3 [H2, cn], db1, db2, db3).
+struct Scratch {
+  long long logits, act, act_per, grads, grads_per, floats;
+};
+
+__host__ __device__ inline Scratch make_scratch(int F, int H1, int H2, int cap, int T,
+                                                int route, int tiles) {
+  Scratch s;
+  long long o = 0;
+  const int jn = slice_of(H1), kn = slice_of(H2), cn = slice_of(cap);
+  s.logits = route != kResident ? take(o, 1LL * T * cap) : -1;
+  s.act_per = 2 * round4(1LL * T * jn) + 3 * round4(1LL * T * H2);
+  s.act = route == kGlobal ? take(o, kCluster * s.act_per) : -1;
+  s.grads_per = round4(1LL * F * jn) + round4(1LL * jn * H2) + round4(1LL * H2 * cn) +
+                round4(jn) + round4(kn) + round4(cn);
+  s.grads = tiles > 1 ? take(o, kCluster * s.grads_per) : -1;
+  s.floats = o;
+  return s;
 }
 
-int rows_for(int B) { return B <= 8 ? 8 : B <= 16 ? 16 : B <= 32 ? 32 : 0; }
+long long smem_bytes(int F, int H1, int H2, int cap, int T, int route) {
+  return 4LL * make_layout(F, H1, H2, cap, T, route).floats;
+}
 
-// 0: every slice resident; 1: w3 and the logits in device memory; -1: the
-// resident slices of w1 and w2 do not fit.
+int rows_for(int B) { return B <= 8 ? 8 : B <= 16 ? 16 : kTileRows; }
+
+// The first route whose shared-memory carve fits; -1 only for a feature
+// width far past the TPU kernel's 64.
 int route_for(int F, int H1, int H2, int cap, int T) {
-  if (smem_bytes(F, H1, H2, cap, T, false) <= kMaxSmem) return 0;
-  if (smem_bytes(F, H1, H2, cap, T, true) <= kMaxSmem) return 1;
+  for (int route = kResident; route <= kGlobal; ++route)
+    if (smem_bytes(F, H1, H2, cap, T, route) <= kMaxSmem) return route;
   return -1;
 }
 
@@ -167,6 +216,15 @@ __device__ __forceinline__ void cluster_wait() {
 __device__ __forceinline__ void cluster_barrier() {
   cluster_arrive();
   cluster_wait();
+}
+
+// The cluster barrier of a route whose exchanges go through device memory:
+// device-scope fences around it order the peers' L2 reads and writes.
+template <bool GLOBAL>
+__device__ __forceinline__ void exchange_barrier() {
+  if constexpr (GLOBAL) __threadfence();
+  cluster_barrier();
+  if constexpr (GLOBAL) __threadfence();
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -258,12 +316,14 @@ __device__ __forceinline__ void product(const float* A, int lda, int K, const fl
   }
 }
 
-// W[k * ldw + n] -= scale * sum_r A[r, k] D[r, n] for k < K, n < N (both
-// multiples of 4): one SGD step of a weight slice, in place.  Each thread
+// g = sum_r A[r, k] D[r, n] for k < K, n < N (both multiples of 4), then by
+// MODE: W[k * ldw + n] -= scale * g (one SGD step of a weight slice, in
+// place), G[k * ldg + n] = g, G += g, or W -= scale * (G + g).  Each thread
 // owns a 4 x 4 tile: 16 FMAs per two 16-byte loads.
-template <int T>
-__device__ __forceinline__ void sgd_outer(const float* A, int lda, int K, const float* D,
-                                          int ldd, int N, float* W, int ldw, float scale) {
+template <int T, int MODE>
+__device__ __forceinline__ void outer_update(const float* A, int lda, int K, const float* D,
+                                             int ldd, int N, float* W, int ldw, float* G,
+                                             int ldg, float scale) {
   const int nq = N / 4;
   for (int it = threadIdx.x; it < (K / 4) * nq; it += blockDim.x) {
     const int k0 = 4 * (it / nq), n0 = 4 * (it % nq);
@@ -285,6 +345,19 @@ __device__ __forceinline__ void sgd_outer(const float* A, int lda, int K, const 
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      float4* g = reinterpret_cast<float4*>(G + static_cast<size_t>(k0 + i) * ldg + n0);
+      if constexpr (MODE == kAccWrite) {
+        *g = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        continue;
+      }
+      if constexpr (MODE == kAccAdd || MODE == kSgdAcc) {
+        const float4 s = *g;
+        acc[i][0] += s.x; acc[i][1] += s.y; acc[i][2] += s.z; acc[i][3] += s.w;
+      }
+      if constexpr (MODE == kAccAdd) {
+        *g = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        continue;
+      }
       float4* w = reinterpret_cast<float4*>(W + static_cast<size_t>(k0 + i) * ldw + n0);
       float4 v = *w;
       v.x -= scale * acc[i][0];
@@ -296,15 +369,23 @@ __device__ __forceinline__ void sgd_outer(const float* A, int lda, int K, const 
   }
 }
 
-// b[n] -= scale * sum_r D[r, n] for n < N.
-template <int T>
-__device__ __forceinline__ void sgd_bias(const float* D, int ldd, int N, float* b,
-                                         float scale) {
+// The bias of outer_update: g = sum_r D[r, n] for n < N, applied to b (or
+// accumulated in G) by MODE.
+template <int T, int MODE>
+__device__ __forceinline__ void bias_update(const float* D, int ldd, int N, float* b,
+                                            float* G, float scale) {
   for (int n = threadIdx.x; n < N; n += blockDim.x) {
     float acc = 0.f;
 #pragma unroll
     for (int r = 0; r < T; ++r) acc += D[r * ldd + n];
-    b[n] -= scale * acc;
+    if constexpr (MODE == kAccWrite) {
+      G[n] = acc;
+    } else if constexpr (MODE == kAccAdd) {
+      G[n] += acc;
+    } else {
+      if constexpr (MODE == kSgdAcc) acc += G[n];
+      b[n] -= scale * acc;
+    }
   }
 }
 
@@ -346,6 +427,30 @@ __device__ __forceinline__ void reduce_push(cg::cluster_group& cl, int rank, flo
   }
 }
 
+// reduce_push on the device-memory route: rank q's buffers sit `stride`
+// floats after rank q - 1's, so the sum reads every rank's partial in place
+// (through L2, rank order) and the result is written to every rank's `out`.
+template <int T, typename Fn>
+__device__ __forceinline__ void reduce_push_global(int rank, long long stride,
+                                                   const float* part, float* out, int H2,
+                                                   int k0, int kc, Fn f) {
+  const int nq = kc / 4, items = T * nq;
+  const float* part0 = part - rank * stride;
+  float* out0 = out - rank * stride;
+  for (int i = threadIdx.x; i < items; i += blockDim.x) {
+    const int r = i / nq, k = k0 + 4 * (i % nq);
+    const long long off = 1LL * r * H2 + k;
+    float4 s = __ldcg(reinterpret_cast<const float4*>(part0 + off));
+    for (int q = 1; q < kCluster; ++q) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(part0 + q * stride + off));
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    const float4 v = f(r, k, s);
+    for (int q = 0; q < kCluster; ++q)
+      __stcg(reinterpret_cast<float4*>(out0 + q * stride + off), v);
+  }
+}
+
 struct Args {
   const float* chunks;
   const float* masks;
@@ -355,59 +460,83 @@ struct Args {
   float lr;
   float *w1, *b1, *w2, *b2, *w3, *b3;
   int H1, H2, cap;
-  float* logits;  // [T, cap] device scratch (W3_GLOBAL only)
+  float* scratch;  // make_scratch's device scratch (routes 1, 2; row tiles)
   float* stats;
 };
 
-template <int T, bool W3_GLOBAL>
+template <int MODE>
+struct Mode {
+  static constexpr int value = MODE;
+};
+
+template <int T, int ROUTE>
 __global__ void __launch_bounds__(kThreads) file_train_kernel(const Args a) {
+  constexpr bool W3G = ROUTE != kResident;
+  constexpr bool ALLG = ROUTE == kGlobal;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   cg::cluster_group cl = cg::this_cluster();
   const int rank = static_cast<int>(cl.block_rank());
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, nwarps = blockDim.x >> 5;
   const int F = a.F, H1 = a.H1, H2 = a.H2, cap = a.cap, B = a.B, S = a.S;
-  const Layout lay = make_layout(F, H1, H2, cap, T, W3_GLOBAL);
-  const int jn = lay.jn, ldw2 = lay.ldw2, ldw3 = lay.ldw3, ldl = lay.ldl;
+  // Row tiles per chunk: more than one only in the widest instance.
+  const int tiles = T == kTileRows ? (B + T - 1) / T : 1;
+  const Layout lay = make_layout(F, H1, H2, cap, T, ROUTE);
+  const Scratch sc = make_scratch(F, H1, H2, cap, T, ROUTE, tiles);
+  const int jn = lay.jn, kn = lay.kn, cn = lay.cn, ldw2 = lay.ldw2, ldw3 = lay.ldw3,
+            ldl = lay.ldl;
+  const int ldw1 = ALLG ? H1 : jn;
   const int j0 = rank * jn, jc = max(0, min(jn, H1 - j0));
-  const int k0 = rank * lay.kn, kc = max(0, min(lay.kn, H2 - k0));
-  const int c0 = rank * lay.cn, cc = max(0, min(lay.cn, cap - c0));
+  const int k0 = rank * kn, kc = max(0, min(kn, H2 - k0));
+  const int c0 = rank * cn, cc = max(0, min(cn, cap - c0));
+  float* act = ALLG ? a.scratch + sc.act + rank * sc.act_per : nullptr;
   float* sx = sm + lay.x;
   float* smk = sm + lay.m;
-  float* w1s = sm + lay.w1;
+  float* w1s = ALLG ? a.w1 + j0 : sm + lay.w1;
   float* b1s = sm + lay.b1;
-  float* w2s = sm + lay.w2;
+  float* w2s = ALLG ? a.w2 + static_cast<size_t>(j0) * H2 : sm + lay.w2;
   float* b2s = sm + lay.b2;
-  float* w3p = W3_GLOBAL ? a.w3 + c0 : sm + lay.w3;
+  float* w3p = W3G ? a.w3 + c0 : sm + lay.w3;
   float* b3s = sm + lay.b3;
   float* tg = sm + lay.tg;
-  float* h1 = sm + lay.h1;
-  float* dh1 = sm + lay.dh1;
-  float* pp = sm + lay.p;
-  float* h2 = sm + lay.h2;
-  float* dh2 = sm + lay.dh2;
-  float* lg = W3_GLOBAL ? a.logits + c0 : sm + lay.l;
+  const long long tjn = round4(1LL * T * jn), th2 = round4(1LL * T * H2);
+  float* h1 = ALLG ? act : sm + lay.h1;
+  float* dh1 = ALLG ? act + tjn : sm + lay.dh1;
+  float* pp = ALLG ? act + 2 * tjn : sm + lay.p;
+  float* h2 = ALLG ? act + 2 * tjn + th2 : sm + lay.h2;
+  float* dh2 = ALLG ? act + 2 * tjn + 2 * th2 : sm + lay.dh2;
+  float* lg = W3G ? a.scratch + sc.logits + c0 : sm + lay.l;
   float* st = sm + lay.st;
   float* ms = sm + lay.ms;
   float* rep = sm + lay.rep;
   float* part = sm + lay.part;
   float* lossbuf = sm + lay.loss;
+  float* chunk_cnt = lossbuf + 1;
+  // The gradient accumulators of this CTA's slices (several row tiles).
+  float* g1 = tiles > 1 ? a.scratch + sc.grads + rank * sc.grads_per : nullptr;
+  float* g2 = g1 + round4(1LL * F * jn);
+  float* g3 = g2 + round4(1LL * jn * H2);
+  float* gb1 = g3 + round4(1LL * H2 * cn);
+  float* gb2 = gb1 + round4(jn);
+  float* gb3 = gb2 + round4(kn);
   const int ns = *a.ns;
 
   // The slices, in once.  Rows past B of both chunk buffers stay 0.
   for (int i = tid; i < 2 * T * F; i += blockDim.x) sx[i] = 0.f;
   for (int i = tid; i < 2 * T; i += blockDim.x) smk[i] = 0.f;
-  for (int i = tid; i < F * (jc / 4); i += blockDim.x) {
-    const int k = i / (jc / 4), n = 4 * (i % (jc / 4));
-    *reinterpret_cast<float4*>(w1s + k * jn + n) =
-        *reinterpret_cast<const float4*>(a.w1 + static_cast<size_t>(k) * H1 + j0 + n);
+  if (!ALLG) {
+    for (int i = tid; i < F * (jc / 4); i += blockDim.x) {
+      const int k = i / (jc / 4), n = 4 * (i % (jc / 4));
+      *reinterpret_cast<float4*>(w1s + k * jn + n) =
+          *reinterpret_cast<const float4*>(a.w1 + static_cast<size_t>(k) * H1 + j0 + n);
+    }
+    for (int i = tid; i < jc * (H2 / 4); i += blockDim.x) {
+      const int k = i / (H2 / 4), n = 4 * (i % (H2 / 4));
+      *reinterpret_cast<float4*>(w2s + k * ldw2 + n) =
+          *reinterpret_cast<const float4*>(a.w2 + static_cast<size_t>(j0 + k) * H2 + n);
+    }
   }
-  for (int i = tid; i < jc * (H2 / 4); i += blockDim.x) {
-    const int k = i / (H2 / 4), n = 4 * (i % (H2 / 4));
-    *reinterpret_cast<float4*>(w2s + k * ldw2 + n) =
-        *reinterpret_cast<const float4*>(a.w2 + static_cast<size_t>(j0 + k) * H2 + n);
-  }
-  if (!W3_GLOBAL) {
+  if (!W3G) {
     for (int i = tid; i < H2 * (cc / 4); i += blockDim.x) {
       const int k = i / (cc / 4), n = 4 * (i % (cc / 4));
       *reinterpret_cast<float4*>(w3p + k * ldw3 + n) =
@@ -422,29 +551,60 @@ __global__ void __launch_bounds__(kThreads) file_train_kernel(const Args a) {
   }
   __syncthreads();
 
-  auto load_chunk = [&](int s, int buf) {
-    if (s < S) {
-      const float* src = a.chunks + static_cast<size_t>(s) * B * F;
+  // Unit u is row tile u % tiles of chunk u / tiles.
+  const int units = S * tiles;
+  auto load_unit = [&](int u, int buf) {
+    if (u < units) {
+      const int s = u / tiles, r0 = (u % tiles) * T, nr = min(T, B - r0);
+      const float* src = a.chunks + (static_cast<size_t>(s) * B + r0) * F;
       float* dst = sx + buf * T * F;
-      for (int i = tid; i < B * F / 4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
-      for (int r = tid; r < B; r += blockDim.x)
-        cp_async4(smk + buf * T + r, a.masks + static_cast<size_t>(s) * B + r);
+      for (int i = tid; i < nr * F / 4; i += blockDim.x) cp_async16(dst + 4 * i, src + 4 * i);
+      for (int r = tid; r < nr; r += blockDim.x)
+        cp_async4(smk + buf * T + r, a.masks + static_cast<size_t>(s) * B + r0 + r);
+      if (tiles > 1) {  // a ragged last tile: rows an earlier tile left are cleared
+        for (int i = nr * F + tid; i < T * F; i += blockDim.x) dst[i] = 0.f;
+        for (int r = nr + tid; r < T; r += blockDim.x) smk[buf * T + r] = 0.f;
+      }
     }
     cp_async_commit();
   };
+  // fn(Mode<m>{}) with this unit's update mode: the SGD step for a one-tile
+  // chunk; over several row tiles, accumulate, and apply at the last.
+  auto with_mode = [&](int t, auto&& fn) {
+    if constexpr (T == kTileRows) {
+      if (tiles > 1) {
+        if (t == 0) fn(Mode<kAccWrite>{});
+        else if (t + 1 < tiles) fn(Mode<kAccAdd>{});
+        else fn(Mode<kSgdAcc>{});
+        return;
+      }
+    }
+    fn(Mode<kSgd>{});
+  };
 
   float loss_acc = 0.f, cnt_acc = 0.f;  // thread 0's
-  load_chunk(0, 0);
-  for (int s = 0; s < S; ++s) {
-    // The buffer step s - 1 used is free: every step ends in a barrier.
-    load_chunk(s + 1, (s + 1) & 1);
+  load_unit(0, 0);
+  for (int u = 0; u < units; ++u) {
+    // The buffer unit u - 1 used is free: every unit ends in a barrier.
+    load_unit(u + 1, (u + 1) & 1);
+    const int s = u / tiles, t = u - s * tiles;
+    if (tiles > 1 && t == 0 && warp == 0) {  // the count over the whole chunk
+      float c = 0.f;
+      for (int r = lane; r < B; r += 32) c += a.masks[static_cast<size_t>(s) * B + r];
+      c = warp_sum(c);
+      if (lane == 0) chunk_cnt[0] = c;
+    }
     cp_async_wait<1>();
     __syncthreads();
-    const float* x = sx + (s & 1) * T * F;
-    const float* mk = smk + (s & 1) * T;
+    const float* x = sx + (u & 1) * T * F;
+    const float* mk = smk + (u & 1) * T;
     float count = 0.f;
+    if (tiles > 1) {
+      count = chunk_cnt[0];
+    } else {
 #pragma unroll
-    for (int r = 0; r < T; ++r) count += mk[r];
+      for (int r = 0; r < T; ++r) count += mk[r];
+    }
     if (count == 0.f) {  // the same in every thread of every CTA
       __syncthreads();
       continue;
@@ -452,19 +612,24 @@ __global__ void __launch_bounds__(kThreads) file_train_kernel(const Args a) {
     const float scale = a.lr / fmaxf(count, 1.f);
 
     // h1[:, J_c], then this CTA's partial of h1 w2.
-    product<T, false>(x, F, F, w1s, jn, jc, part, [&](int r, int n, float v) {
+    product<T, false>(x, F, F, w1s, ldw1, jc, part, [&](int r, int n, float v) {
       h1[r * jn + n] = fmaxf(v + b1s[n], 0.f);
     });
     __syncthreads();
     product<T, false>(h1, jn, jc, w2s, ldw2, H2, part,
                       [&](int r, int n, float v) { pp[r * H2 + n] = v; });
-    cluster_barrier();  // A: every partial is written
-    reduce_push<T>(cl, rank, pp, h2, part, H2, k0, kc, [&](int, int k, float4 v) {
+    exchange_barrier<ALLG>();  // A: every partial is written
+    auto tanh_b2 = [&](int, int k, float4 v) {
       const float* b = b2s + (k - k0);
       return make_float4(tanhf(v.x + b[0]), tanhf(v.y + b[1]), tanhf(v.z + b[2]),
                          tanhf(v.w + b[3]));
-    });
-    cluster_barrier();  // B: h2 is whole in every CTA
+    };
+    if constexpr (ALLG) {
+      reduce_push_global<T>(rank, sc.act_per, pp, h2, H2, k0, kc, tanh_b2);
+    } else {
+      reduce_push<T>(cl, rank, pp, h2, part, H2, k0, kc, tanh_b2);
+    }
+    exchange_barrier<ALLG>();  // B: h2 is whole in every CTA
 
     // logits[:, C_c] and their per-row (max, sum exp).
     product<T, false>(h2, H2, H2, w3p, ldw3, cc, part, [&](int r, int n, float v) {
@@ -522,48 +687,63 @@ __global__ void __launch_bounds__(kThreads) file_train_kernel(const Args a) {
     product<T, true>(lg, ldl, cc, w3p, ldw3, H2, part,
                      [&](int r, int n, float v) { pp[r * H2 + n] = v; });
     __syncthreads();
+    if constexpr (ALLG) __threadfence();
     cluster_arrive();  // D, arrive: the partial is written
-    sgd_outer<T>(h2, H2, H2, lg, ldl, cc, w3p, ldw3, scale);
-    sgd_bias<T>(lg, ldl, cc, b3s, scale);
+    with_mode(t, [&](auto m) {
+      constexpr int M = decltype(m)::value;
+      outer_update<T, M>(h2, H2, H2, lg, ldl, cc, w3p, ldw3, g3, cn, scale);
+      bias_update<T, M>(lg, ldl, cc, b3s, gb3, scale);
+    });
     if (tid == 0) {
       float loss = 0.f;
       for (int r = 0; r < T; ++r) loss += rep[r];
       loss_acc += loss;
-      cnt_acc += count;
+      if (t == 0) cnt_acc += count;
     }
     cluster_wait();  // D, wait
-    reduce_push<T>(cl, rank, pp, dh2, part, H2, k0, kc, [&](int r, int k, float4 v) {
+    if constexpr (ALLG) __threadfence();
+    auto tanh_deriv = [&](int r, int k, float4 v) {
       const float* h = h2 + r * H2 + k;
       return make_float4(v.x * (1.f - h[0] * h[0]), v.y * (1.f - h[1] * h[1]),
                          v.z * (1.f - h[2] * h[2]), v.w * (1.f - h[3] * h[3]));
-    });
-    cluster_barrier();  // E: dh2 is whole in every CTA
+    };
+    if constexpr (ALLG) {
+      reduce_push_global<T>(rank, sc.act_per, pp, dh2, H2, k0, kc, tanh_deriv);
+    } else {
+      reduce_push<T>(cl, rank, pp, dh2, part, H2, k0, kc, tanh_deriv);
+    }
+    exchange_barrier<ALLG>();  // E: dh2 is whole in every CTA
 
     // dh1[:, J_c] from w2 before its update, then the local updates.
     product<T, true>(dh2, H2, H2, w2s, ldw2, jc, part, [&](int r, int n, float v) {
       dh1[r * jn + n] = v * (h1[r * jn + n] > 0.f ? 1.f : 0.f);
     });
     __syncthreads();
-    sgd_outer<T>(h1, jn, jc, dh2, H2, H2, w2s, ldw2, scale);
-    sgd_bias<T>(dh2 + k0, H2, kc, b2s, scale);
-    sgd_outer<T>(x, F, F, dh1, jn, jc, w1s, jn, scale);
-    sgd_bias<T>(dh1, jn, jc, b1s, scale);
+    with_mode(t, [&](auto m) {
+      constexpr int M = decltype(m)::value;
+      outer_update<T, M>(h1, jn, jc, dh2, H2, H2, w2s, ldw2, g2, H2, scale);
+      bias_update<T, M>(dh2 + k0, H2, kc, b2s, gb2, scale);
+      outer_update<T, M>(x, F, F, dh1, jn, jc, w1s, ldw1, g1, jn, scale);
+      bias_update<T, M>(dh1, jn, jc, b1s, gb1, scale);
+    });
     __syncthreads();
   }
   cp_async_wait<0>();
 
   // The slices, out once; then the stats, summed in rank order.
-  for (int i = tid; i < F * (jc / 4); i += blockDim.x) {
-    const int k = i / (jc / 4), n = 4 * (i % (jc / 4));
-    *reinterpret_cast<float4*>(a.w1 + static_cast<size_t>(k) * H1 + j0 + n) =
-        *reinterpret_cast<const float4*>(w1s + k * jn + n);
+  if (!ALLG) {
+    for (int i = tid; i < F * (jc / 4); i += blockDim.x) {
+      const int k = i / (jc / 4), n = 4 * (i % (jc / 4));
+      *reinterpret_cast<float4*>(a.w1 + static_cast<size_t>(k) * H1 + j0 + n) =
+          *reinterpret_cast<const float4*>(w1s + k * jn + n);
+    }
+    for (int i = tid; i < jc * (H2 / 4); i += blockDim.x) {
+      const int k = i / (H2 / 4), n = 4 * (i % (H2 / 4));
+      *reinterpret_cast<float4*>(a.w2 + static_cast<size_t>(j0 + k) * H2 + n) =
+          *reinterpret_cast<const float4*>(w2s + k * ldw2 + n);
+    }
   }
-  for (int i = tid; i < jc * (H2 / 4); i += blockDim.x) {
-    const int k = i / (H2 / 4), n = 4 * (i % (H2 / 4));
-    *reinterpret_cast<float4*>(a.w2 + static_cast<size_t>(j0 + k) * H2 + n) =
-        *reinterpret_cast<const float4*>(w2s + k * ldw2 + n);
-  }
-  if (!W3_GLOBAL) {
+  if (!W3G) {
     for (int i = tid; i < H2 * (cc / 4); i += blockDim.x) {
       const int k = i / (cc / 4), n = 4 * (i % (cc / 4));
       *reinterpret_cast<float4*>(a.w3 + static_cast<size_t>(k) * cap + c0 + n) =
@@ -584,11 +764,10 @@ __global__ void __launch_bounds__(kThreads) file_train_kernel(const Args a) {
   cluster_barrier();  // no CTA leaves while rank 0 reads its shared memory
 }
 
-template <int T, bool W3_GLOBAL>
+template <int T, int ROUTE>
 cudaError_t launch(const Args& args, cudaStream_t stream) {
-  const auto kernel = file_train_kernel<T, W3_GLOBAL>;
-  const int smem = static_cast<int>(
-      smem_bytes(args.F, args.H1, args.H2, args.cap, T, W3_GLOBAL));
+  const auto kernel = file_train_kernel<T, ROUTE>;
+  const int smem = static_cast<int>(smem_bytes(args.F, args.H1, args.H2, args.cap, T, ROUTE));
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -617,54 +796,66 @@ cudaError_t launch(const Args& args, cudaStream_t stream) {
 }
 
 template <int T>
-cudaError_t launch_rows(const Args& args, bool w3_global, cudaStream_t stream) {
-  return w3_global ? launch<T, true>(args, stream) : launch<T, false>(args, stream);
+cudaError_t launch_rows(const Args& args, int route, cudaStream_t stream) {
+  switch (route) {
+    case kResident: return launch<T, kResident>(args, stream);
+    case kW3Global: return launch<T, kW3Global>(args, stream);
+    default: return launch<T, kGlobal>(args, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows one step computes for chunks of B windows (0: B is too large).
+// Rows one step (one row tile of a step, past 32 windows) computes for
+// chunks of B windows.
 int streamz_file_train_rows(int B) { return rows_for(B); }
 
 // CTAs in the cluster of one launch.
 int streamz_file_train_cluster() { return kCluster; }
 
-// Where w3 lives at these widths: 0 in the CTAs' shared memory, 1 in device
-// memory (then the launch takes a [rows, cap] logits scratch), -1 nowhere:
-// the resident slices of w1 and w2 do not fit, and the launch is refused.
+// The route at these widths and chunks of B windows: 0 every slice in the
+// CTAs' shared memory, 1 w3 in device memory, 2 w1, w2, w3 and the
+// activations in device memory; -1 for a feature width no route takes.
 int streamz_file_train_route(int F, int H1, int H2, int cap, int B) {
+  return route_for(F, H1, H2, cap, rows_for(B));
+}
+
+// Floats of device scratch a launch takes (0: none).
+long long streamz_file_train_scratch(int F, int H1, int H2, int cap, int B) {
   const int T = rows_for(B);
-  return T == 0 ? -1 : route_for(F, H1, H2, cap, T);
+  const int route = route_for(F, H1, H2, cap, T);
+  return route < 0 ? 0 : make_scratch(F, H1, H2, cap, T, route, (B + T - 1) / T).floats;
 }
 
 // Launch K6 on `stream`: one cluster.  The parameters are updated in place;
-// stats gets (loss sum, count).  logits_scratch: [rows, cap] when the route
-// is 1, else null.  chunks must be 16-byte aligned.  The wrapper handles
-// S == 0 without launching.  Returns the CUDA error of the launch (0 on
-// success, and an error when the cluster cannot be placed); it does not
-// synchronise.
+// stats gets (loss sum, count).  scratch: streamz_file_train_scratch floats
+// (null when that is 0).  chunks must be 16-byte aligned.  The wrapper
+// handles S == 0 without launching.  Returns the CUDA error of the launch
+// (0 on success, and an error when the cluster cannot be placed); it does
+// not synchronise.
 int streamz_file_train(const float* chunks, const float* masks, int S, int B, int F,
                        const float* tgt, const int* ns, float lr, float* w1,
                        float* b1, float* w2, float* b2, float* w3, float* b3, int H1,
-                       int H2, int cap, float* logits_scratch, float* stats,
-                       void* stream) {
-  const int T = rows_for(B);
-  if (S <= 0 || B <= 0 || T == 0 || F <= 0 || H1 <= 0 || H2 <= 0 || cap <= 0 ||
-      F % 4 || H1 % 4 || H2 % 4 || cap % 4 || reinterpret_cast<size_t>(chunks) % 16)
+                       int H2, int cap, float* scratch, float* stats, void* stream) {
+  if (S <= 0 || B <= 0 || F <= 0 || H1 <= 0 || H2 <= 0 || cap <= 0 || F % 4 ||
+      H1 % 4 || H2 % 4 || cap % 4 || reinterpret_cast<size_t>(chunks) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int T = rows_for(B);
   const int route = route_for(F, H1, H2, cap, T);
-  if (route < 0 || (route == 1) != (logits_scratch != nullptr))
+  const long long need =
+      route < 0 ? 0 : make_scratch(F, H1, H2, cap, T, route, (B + T - 1) / T).floats;
+  if (route < 0 || (need > 0) != (scratch != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const Args args{chunks, masks, S, B, F, tgt, ns, lr, w1, b1, w2, b2, w3, b3,
-                  H1, H2, cap, logits_scratch, stats};
+                  H1, H2, cap, scratch, stats};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (T) {
-    case 8: err = launch_rows<8>(args, route == 1, s); break;
-    case 16: err = launch_rows<16>(args, route == 1, s); break;
-    default: err = launch_rows<32>(args, route == 1, s); break;
+    case 8: err = launch_rows<8>(args, route, s); break;
+    case 16: err = launch_rows<16>(args, route, s); break;
+    default: err = launch_rows<kTileRows>(args, route, s); break;
   }
   return static_cast<int>(err);
 }

@@ -6,10 +6,11 @@ exactly ``softmax(logits) - target``, including the quirk that an
 out-of-range target class gives a zero target vector
 (``streamz-rs/src/lib.rs:592-594``, ``:954-1060``).
 
-The corpus step runs K5 and the per-file trainer K6 (``train_kernels``):
-each wrapper launches its kernel for CUDA tensors, at every capacity, and
-runs its plain formulation for CPU tensors.  The plain versions are
-``train_kernels.corpus_grads_plain`` and ``train_windows_plain``.
+The corpus step runs K5's step form and the per-file trainer K6
+(``train_kernels``): each wrapper launches its kernel for CUDA tensors, at
+every capacity, and runs its plain formulation for CPU tensors.  The plain
+versions are ``train_kernels.corpus_grads_plain`` with ``_apply_step``, and
+``train_windows_plain``.
 
 The step functions update the parameter dictionary IN PLACE and also
 return it, where the JAX package returns a new one.
@@ -23,12 +24,12 @@ import torch
 
 from streamz_tpu_torch.nn import prng
 from streamz_tpu_torch.nn.train_kernels import (
+    Batch,
     NumSpeakers,
     Params,
-    _apply_step,
     _mlp_grads,
     _sgd,
-    corpus_grads_k5,
+    corpus_step_k5,
     train_windows_k6,
 )
 
@@ -91,9 +92,8 @@ def train_on_windows_impl(params: Params, windows: torch.Tensor, n_valid,
 
 def corpus_step(params: Params, batch: torch.Tensor, labels: torch.Tensor,
                 weights: torch.Tensor, num_speakers: NumSpeakers, lr):
-    """One SGD step on a large labelled batch through K5, ``p -= lr /
-    max(count, 1) * grad`` in place; returns (params, mean CE loss as a
+    """One SGD step on a large labelled batch through K5's step form, ``p -=
+    lr / max(count, 1) * grad`` in place; returns (params, mean CE loss as a
     device scalar)."""
-    grads, loss_sum, count = corpus_grads_k5(params, batch, labels, weights,
-                                             num_speakers)
-    return params, _apply_step(params, grads, loss_sum, count, lr)
+    return params, corpus_step_k5(params, Batch(batch, labels, weights),
+                                  num_speakers, lr)

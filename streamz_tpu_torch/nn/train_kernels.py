@@ -3,34 +3,43 @@
 - **K5** (``csrc/corpus_grads.cu``) replaces
   ``streamz_tpu/nn/pallas_train.py:_train_kernel`` (``corpus_grads_pallas``,
   ``corpus_step_pallas``): forward, masked softmax cross-entropy and
-  backward of a labelled batch, giving the six gradient sums, the weighted
-  loss sum and the count.  :func:`corpus_grads_k5`.
+  backward of labelled rows on the tensor cores (3xTF32).  Rows come from a
+  batch (:class:`Batch`) or are gathered on the card from a window pool by
+  the epoch's order and dropout mask (:class:`PoolRows`).  Two forms: the
+  six gradient sums with the weighted loss sum and the count
+  (:func:`corpus_grads_k5`, :func:`corpus_rows_grads_k5`), or the SGD step
+  applied in place with the mean loss (:func:`corpus_step_k5`).
 - **K6** (``csrc/file_train.cu``) replaces ``_file_train_kernel``
   (``train_windows_pallas``): the whole per-file chunk-SGD loop of the
   discovery loop in one launch of one thread-block cluster, whose CTAs hold
-  the parameters in their shared memory for the whole file (w3 stays in
-  device memory when its slices do not fit).  :func:`train_windows_k6`.
+  the parameters in their shared memory for the whole file (w3, or every
+  weight and the activations, stay in device memory when their slices do
+  not fit: :data:`K6_ROUTES`).  It takes any chunk size: chunks of more
+  than 32 windows run as row tiles of 32 within a step.
+  :func:`train_windows_k6`.
 
 Beside each kernel is its plain PyTorch version, :func:`corpus_grads_plain`
-and :func:`train_windows_plain` (a loop of :func:`_chunk_update`), with the
+(after :func:`rows_plain`; the step adds :func:`_apply_step`) and
+:func:`train_windows_plain` (a loop of :func:`_chunk_update`), with the
 same hand-written backward: the delta ``softmax - target`` of the surrogate
 loss ``sum_i w_i (logsumexp(logits_i) - <t_i, logits_i>)``
 (``streamz-rs/src/lib.rs:954-1060``).  A wrapper given CPU tensors runs the
 plain version, since there is no kernel there; given CUDA tensors it
 launches its kernel or raises, at every capacity.  Each wrapper counts its
-launches in ``.launches``.
+launches in ``.launches`` (K5's entry points all count on
+``corpus_grads_k5.launches``).
 
 Parameters are dictionaries of f32 tensors in the JAX package's layout
-(``w1`` [F, H1] ... ``b3`` [capacity]).  The per-file trainers
-(``train_windows_k6`` and its plain twin) update them IN PLACE, which saves
-a copy of the parameters per step.
+(``w1`` [F, H1] ... ``b3`` [capacity]).  The corpus step and the per-file
+trainers (``corpus_step_k5``, ``train_windows_k6`` and their plain twins)
+update them IN PLACE, which saves a copy of the parameters per step.
 """
 
 from __future__ import annotations
 
 import ctypes
 from functools import lru_cache
-from typing import Dict, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -91,6 +100,47 @@ def corpus_grads_plain(params: Params, batch: torch.Tensor, labels: torch.Tensor
     return grads, (per * weights).sum(), weights.sum()
 
 
+class Batch(NamedTuple):
+    """Labelled rows as they are: ``x`` [B, F] f32, ``labels`` [B] int32,
+    ``weights`` [B] f32."""
+
+    x: torch.Tensor
+    labels: torch.Tensor
+    weights: torch.Tensor
+
+
+class PoolRows(NamedTuple):
+    """A corpus step's rows, gathered from a window pool: row i is
+    ``pool_x[order[i]]`` ([N, F] f32), times ``keep[i]`` ([n, F] uint8 0/1,
+    the dropout mask of the step's positions; None without dropout),
+    labelled ``pool_y[order[i]]`` ([N] int32).  Rows ``i >= n`` of ``order``
+    ([B] int32) are the epoch's padding: weight 0.  Under dropout a row's
+    weight is also 0 when it is all zero (``src/lib.rs:119-129, :607-609``)."""
+
+    pool_x: torch.Tensor
+    pool_y: torch.Tensor
+    order: torch.Tensor
+    keep: Optional[torch.Tensor]
+    n: int
+
+
+Rows = Union[Batch, PoolRows]
+
+
+def rows_plain(rows: Rows) -> Batch:
+    """The rows as a :class:`Batch`, gathered in plain torch: the same bits
+    as the JAX package's host gather (``streamz_tpu/app/corpus.py:95-113``)."""
+    if isinstance(rows, Batch):
+        return rows
+    idx = rows.order.long()
+    x = rows.pool_x[idx]
+    w = (torch.arange(len(idx), device=x.device) < rows.n).to(torch.float32)
+    if rows.keep is not None:
+        x[:rows.n] = x[:rows.n] * rows.keep.to(torch.float32)
+        w = w * (x != 0.0).any(dim=-1)
+    return Batch(x, rows.pool_y[idx], w)
+
+
 def _sgd(params: Params, grads: Params, count: torch.Tensor, lr) -> None:
     """``p -= lr / count * grad`` in place; no update when count is 0."""
     scale = torch.where(count > 0, lr / torch.clamp(count, min=1.0),
@@ -142,13 +192,16 @@ def train_windows_plain(params: Params, chunks: torch.Tensor, masks: torch.Tenso
 
 def _declare_k5(lib: ctypes.CDLL) -> None:
     p, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.streamz_corpus_grads.argtypes = [
-        p, p, p, i32, p, p, p, p, p, p, p, i32, i32, i32, i32, i32, i32, p, p, p, p]
-    lib.streamz_corpus_grads.restype = i32
-    lib.streamz_corpus_grads_slot_size.argtypes = [i32, i32, i32, i32]
-    lib.streamz_corpus_grads_slot_size.restype = ctypes.c_longlong
-    lib.streamz_corpus_grads_tile.argtypes = [i32, i32, i32, i32, ctypes.POINTER(i32)]
-    lib.streamz_corpus_grads_tile.restype = i32
+    lib.streamz_k5.argtypes = [
+        p, p, p, p, p, i32, i32, p, p, p, p, p, p, p, i32, i32, i32, i32, i32, p, p, p,
+        ctypes.c_float, p, p]
+    lib.streamz_k5.restype = i32
+    lib.streamz_k5_grad_size.argtypes = [i32, i32, i32, i32]
+    lib.streamz_k5_grad_size.restype = ctypes.c_longlong
+    lib.streamz_k5_parts.argtypes = [i32, i32, i32, i32, i32, i32]
+    lib.streamz_k5_parts.restype = i32
+    lib.streamz_k5_workspace.argtypes = [i32, i32, i32, i32, i32, i32]
+    lib.streamz_k5_workspace.restype = ctypes.c_longlong
 
 
 def _declare_k6(lib: ctypes.CDLL) -> None:
@@ -163,6 +216,8 @@ def _declare_k6(lib: ctypes.CDLL) -> None:
     lib.streamz_file_train_cluster.restype = i32
     lib.streamz_file_train_route.argtypes = [i32, i32, i32, i32, i32]
     lib.streamz_file_train_route.restype = i32
+    lib.streamz_file_train_scratch.argtypes = [i32, i32, i32, i32, i32]
+    lib.streamz_file_train_scratch.restype = ctypes.c_longlong
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
@@ -201,44 +256,58 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def corpus_grads_k5(params: Params, batch: torch.Tensor, labels: torch.Tensor,
-                    weights: torch.Tensor, num_speakers: NumSpeakers):
-    """K5: summed gradients + (loss_sum, count) for one labelled batch
-    (``batch`` [B, F] f32, ``labels`` [B] int32, ``weights`` [B] f32).  The
-    gradient sums are bit-reproducible on one card."""
-    if batch.device.type == "cpu":
-        return corpus_grads_plain(params, batch, labels, weights, num_speakers)
-    if batch.device.type != "cuda":
-        raise ValueError(f"K5 runs on CUDA or CPU tensors, got {batch.device}")
-    dev = batch.device
+def _k5(params: Params, rows: Rows, num_speakers: NumSpeakers, lr):
+    """K5 on CUDA rows: the gradient sums (``lr`` None) as (grads, loss_sum,
+    count), or the step in place, returning the mean loss.  One launch."""
+    dev = rows[0].device
     F, H1, H2, cap = _check_params(params, dev)
-    if batch.dim() != 2 or batch.shape[0] == 0:
-        raise ValueError(f"K5 takes a non-empty [B, {F}] batch, got {tuple(batch.shape)}")
-    B = batch.shape[0]
-    _check("batch", batch, torch.float32, (B, F), dev)
-    _check("labels", labels, torch.int32, (B,), dev)
-    _check("weights", weights, torch.float32, (B,), dev)
+    if F > 64:
+        raise ValueError(f"K5 takes feature widths up to 64, got {F}")
+    if any(params[k].data_ptr() % 16 for k in PARAM_NAMES):
+        raise ValueError("K5 takes parameters aligned to 16 bytes")
+    if isinstance(rows, Batch):
+        B = rows.x.shape[0] if rows.x.dim() == 2 else 0
+        if B == 0:
+            raise ValueError(f"K5 takes a non-empty [B, {F}] batch, got {tuple(rows.x.shape)}")
+        _check("batch", rows.x, torch.float32, (B, F), dev)
+        _check("labels", rows.labels, torch.int32, (B,), dev)
+        _check("weights", rows.weights, torch.float32, (B,), dev)
+        src = (rows.x, rows.labels, rows.weights, None, None)
+        n_src, R = B, B
+    else:
+        N = rows.pool_x.shape[0]
+        R = int(rows.n)
+        _check("pool_x", rows.pool_x, torch.float32, (N, F), dev)
+        _check("pool_y", rows.pool_y, torch.int32, (N,), dev)
+        if rows.order.dim() != 1 or not 0 < R <= rows.order.shape[0]:
+            raise ValueError(f"K5 takes 1 to {rows.order.shape[0]} real rows, got {R}")
+        _check("order", rows.order, torch.int32, rows.order.shape, dev)
+        if rows.keep is not None:
+            _check("keep", rows.keep, torch.uint8, (R, F), dev)
+        src = (rows.pool_x, rows.pool_y, None, rows.order, rows.keep)
+        n_src = N
     ns = _ns_tensor(num_speakers, dev)
     lib = _cuda_build.load("corpus_grads", _declare_k5)
-    global_logits = ctypes.c_int(0)
-    tile = int(lib.streamz_corpus_grads_tile(F, H1, H2, cap, ctypes.byref(global_logits)))
-    slots = min(-(-B // tile), _sm_count(dev))
-    size = int(lib.streamz_corpus_grads_slot_size(F, H1, H2, cap))
-    part = torch.empty((slots, size), dtype=torch.float32, device=dev)
-    scratch = (torch.empty((slots, tile, cap), dtype=torch.float32, device=dev)
-               if global_logits.value else None)
-    out = torch.empty((size,), dtype=torch.float32, device=dev)
+    parts = int(lib.streamz_k5_parts(R, F, H1, H2, cap, _sm_count(dev)))
+    ws = torch.empty((int(lib.streamz_k5_workspace(R, F, H1, H2, cap, parts)),),
+                     dtype=torch.float32, device=dev)
+    size = int(lib.streamz_k5_grad_size(F, H1, H2, cap))
+    # sums: [dw1 | db1 | dw2 | db2 | dw3 | db3 | loss, count, 0, 0]
+    out = torch.empty((size + 4,) if lr is None else (1,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.streamz_corpus_grads(
-            batch.data_ptr(), labels.data_ptr(), weights.data_ptr(), B, ns.data_ptr(),
-            *(params[k].data_ptr() for k in PARAM_NAMES), F, H1, H2, cap, tile,
-            slots, part.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            out.data_ptr(), stream)
+        rc = lib.streamz_k5(
+            *(None if t is None else t.data_ptr() for t in src), n_src, R, ns.data_ptr(),
+            *(params[k].data_ptr() for k in PARAM_NAMES), F, H1, H2, cap, parts,
+            ws.data_ptr(), out.data_ptr() if lr is None else None,
+            out[size:].data_ptr() if lr is None else None,
+            0.0 if lr is None else float(lr), None if lr is None else out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"K5 (corpus_grads) launch failed: CUDA error {rc}")
     corpus_grads_k5.launches += 1
-    grads, off = {}, 0  # out: [dw1 | db1 | dw2 | db2 | dw3 | db3 | loss, count, 0, 0]
+    if lr is not None:
+        return out[0]
+    grads, off = {}, 0
     for k in PARAM_NAMES:
         n = params[k].numel()
         grads[k] = out[off:off + n].view(params[k].shape)
@@ -246,26 +315,58 @@ def corpus_grads_k5(params: Params, batch: torch.Tensor, labels: torch.Tensor,
     return grads, out[off], out[off + 1]
 
 
+def _k5_device(rows: Rows) -> torch.device:
+    dev = rows[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"K5 runs on CUDA or CPU tensors, got {dev}")
+    return dev
+
+
+def corpus_rows_grads_k5(params: Params, rows: Rows, num_speakers: NumSpeakers):
+    """K5's sums form: summed gradients + (loss_sum, count) over ``rows``.
+    Bit-reproducible on one card."""
+    if _k5_device(rows).type == "cpu":
+        return corpus_grads_plain(params, *rows_plain(rows), num_speakers)
+    return _k5(params, rows, num_speakers, None)
+
+
+def corpus_grads_k5(params: Params, batch: torch.Tensor, labels: torch.Tensor,
+                    weights: torch.Tensor, num_speakers: NumSpeakers):
+    """K5: summed gradients + (loss_sum, count) for one labelled batch
+    (``batch`` [B, F] f32, ``labels`` [B] int32, ``weights`` [B] f32).  The
+    gradient sums are bit-reproducible on one card.  ``.launches`` counts
+    every K5 launch, through any entry point."""
+    return corpus_rows_grads_k5(params, Batch(batch, labels, weights), num_speakers)
+
+
 corpus_grads_k5.launches = 0
 
 
-K6_W3_ROUTES = ("shared memory", "device memory")
+def corpus_step_k5(params: Params, rows: Rows, num_speakers: NumSpeakers, lr):
+    """K5's step form: ``p -= lr / max(count, 1) * grad`` in place over
+    ``rows`` (no update when count is 0); returns the mean loss
+    ``loss_sum / max(count, 1)`` as a device scalar.  On the CPU the plain
+    gather, gradients and :func:`_apply_step`."""
+    if _k5_device(rows).type == "cpu":
+        return _apply_step(params, *corpus_grads_plain(params, *rows_plain(rows),
+                                                       num_speakers), lr)
+    return _k5(params, rows, num_speakers, lr)
+
+
+# K6's routes, by what fits in a CTA's shared memory (csrc/file_train.cu).
+K6_ROUTES = ("shared memory", "w3 in device memory", "device memory")
 
 
 def k6_plan(F: int, H1: int, H2: int, capacity: int, B: int) -> Tuple[int, str]:
-    """K6's cluster size and where w3 lives for these widths and chunks of
-    B windows (builds the kernel).  Raises ValueError for a shape whose
-    resident slices of w1 and w2 do not fit the cluster."""
+    """K6's cluster size and route for these widths and chunks of B windows
+    (builds the kernel): every slice in the cluster's shared memory, w3 in
+    device memory, or w1, w2, w3 and the activations in device memory.
+    Chunks of more than 32 windows run as row tiles of 32 on any route."""
     lib = _cuda_build.load("file_train", _declare_k6)
-    if int(lib.streamz_file_train_rows(B)) == 0:
-        raise ValueError(f"K6 takes chunks of at most 32 windows, got {B}")
     route = int(lib.streamz_file_train_route(F, H1, H2, capacity, B))
     if route < 0:
-        raise ValueError(
-            f"K6 cannot hold the widths {(F, H1, H2, capacity)} at {B} windows per "
-            f"chunk: the slices of w1 and w2 do not fit the shared memory of a "
-            f"cluster of {int(lib.streamz_file_train_cluster())} CTAs")
-    return int(lib.streamz_file_train_cluster()), K6_W3_ROUTES[route]
+        raise ValueError(f"K6 takes feature widths up to 64, got {F}")
+    return int(lib.streamz_file_train_cluster()), K6_ROUTES[route]
 
 
 def train_windows_k6(params: Params, chunks: torch.Tensor, masks: torch.Tensor,
@@ -291,12 +392,12 @@ def train_windows_k6(params: Params, chunks: torch.Tensor, masks: torch.Tensor,
     stats = torch.zeros((2,), dtype=torch.float32, device=dev)
     if S == 0:
         return stats[0], stats[1]
-    if chunks.data_ptr() % 16:
-        raise ValueError("K6 takes chunks aligned to 16 bytes")
-    _, route = k6_plan(F, H1, H2, cap, B)
+    if any(t.data_ptr() % 16 for t in (chunks, *params.values())):
+        raise ValueError("K6 takes chunks and parameters aligned to 16 bytes")
+    k6_plan(F, H1, H2, cap, B)
     lib = _cuda_build.load("file_train", _declare_k6)
-    scratch = (torch.empty((lib.streamz_file_train_rows(B), cap), dtype=torch.float32,
-                           device=dev) if route == "device memory" else None)
+    floats = int(lib.streamz_file_train_scratch(F, H1, H2, cap, B))
+    scratch = torch.empty((floats,), dtype=torch.float32, device=dev) if floats else None
     ns = _ns_tensor(num_speakers, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

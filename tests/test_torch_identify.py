@@ -228,6 +228,25 @@ def test_help(capsys):
     assert "--identify" in capsys.readouterr().out
 
 
+def test_help_into_a_closed_pipe_exits_0(tmp_path):
+    """``python -m streamz_tpu_torch --help`` whose reader closed the pipe
+    before the child wrote (as ``--help | head -0`` can): rc 0 and nothing
+    on stderr, as the JAX CLI's guard gives (streamz_tpu/cli.py:196-208)."""
+    import subprocess
+    import sys
+
+    read_end, write_end = os.pipe()
+    os.close(read_end)
+    try:
+        proc = subprocess.run([sys.executable, "-m", "streamz_tpu_torch", "--help"],
+                              stdout=write_end, stderr=subprocess.PIPE, timeout=120,
+                              cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    finally:
+        os.close(write_end)
+    assert proc.returncode == 0
+    assert proc.stderr == b""
+
+
 def test_identify_on_cuda_without_card_fails_cleanly(corpus, monkeypatch, capsys):
     import torch
 

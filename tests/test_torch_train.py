@@ -209,6 +209,102 @@ def test_train_corpus_matches_jax_on_one_device():
     assert _max_err(jnet.params, tnet.params) <= 1e-5
 
 
+@pytest.mark.parametrize("dropout", [0.0, 0.5])
+def test_train_corpus_pool_route_matches_jax(dropout):
+    """The pool route (the step's rows gathered by the uploaded order and
+    keep mask) over several steps per epoch, a ragged last one, with and
+    without dropout, against the JAX package's host-gathered batches:
+    per-epoch losses and parameters within 1e-5."""
+    from streamz_tpu.app import corpus as jcorpus
+    from streamz_tpu.parallel import comm
+    from streamz_tpu_torch.app import corpus as tcorpus
+
+    rng = np.random.default_rng(7)
+    x = rng.normal(0, 1, (700, 60)).astype(np.float32)
+    x[::50] = 0.0  # all-zero windows: skipped only under dropout
+    y = rng.integers(0, 4, 700).astype(np.int32)
+    jnet = jmodel.SpeakerNet.new(60, 32, 16, 4, seed=1)
+    tnet = tmodel.SpeakerNet.new(60, 32, 16, 4, seed=1, device="cpu")
+    kw = dict(epochs=2, batch_size=256, lr=0.05, dropout=dropout, seed=3)
+    jl = jcorpus.train_corpus(jnet, x, y, mesh=comm.make_mesh(1), **kw)
+    tl = tcorpus.train_corpus(tnet, x, y, **kw)
+    np.testing.assert_allclose(tl, jl, atol=1e-5)
+    assert _max_err(jnet.params, tnet.params) <= 1e-5
+
+
+def _host_gathered(windows, labels, order, n, keep):
+    """One step's batch as the JAX package gathers it on the host
+    (streamz_tpu/app/corpus.py:95-113): padding rows past n are window 0
+    with weight 0; dropout zeroes features and skips all-zero rows."""
+    x = windows[order]
+    w = (np.arange(len(order)) < n).astype(np.float32)
+    if keep is not None:
+        x[:n] = x[:n] * keep
+        w = w * np.any(x != 0.0, axis=-1)
+    return (torch.from_numpy(np.ascontiguousarray(x)), torch.from_numpy(labels[order]),
+            torch.from_numpy(w.astype(np.float32)))
+
+
+@pytest.mark.parametrize("dropout", [0.0, 0.2])
+@pytest.mark.parametrize("n", [64, 37])
+def test_pool_rows_plain_match_host_gather_bit_for_bit(dropout, n):
+    """K5's pool route on the CPU (the plain gather in torch, then the plain
+    gradients and step) against the host-gathered batch through
+    corpus_grads_plain and _apply_step: the same bits, at a full step and a
+    ragged one (37 real rows of 64), with and without dropout."""
+    rng = np.random.default_rng(n + int(dropout * 10))
+    windows = rng.normal(0, 1, (150, 60)).astype(np.float32)
+    windows[:5] = 0.0
+    labels = rng.integers(0, 6, 150).astype(np.int32)
+    order = np.zeros(64, np.int32)
+    order[:n] = rng.permutation(150)[:n]
+    keep = rng.random((n, 60), dtype=np.float32) >= dropout if dropout else None
+    rows = tk.PoolRows(torch.from_numpy(windows), torch.from_numpy(labels),
+                       torch.from_numpy(order),
+                       None if keep is None else torch.from_numpy(keep.view(np.uint8)), n)
+    host = _host_gathered(windows, labels, order, n, keep)
+    for got, want in zip(tk.rows_plain(rows), host):
+        assert torch.equal(got, want)
+    params = tmodel.init_params(60, 32, 16, 8, seed=4, device="cpu")
+    g, loss, cnt = tk.corpus_rows_grads_k5(params, rows, 5)
+    wg, wloss, wcnt = tk.corpus_grads_plain(params, *host, 5)
+    for k in wg:
+        assert torch.equal(g[k], wg[k]), k
+    assert torch.equal(loss, wloss) and torch.equal(cnt, wcnt)
+    stepped = {k: v.clone() for k, v in params.items()}
+    mean = tk.corpus_step_k5(stepped, rows, 5, 0.05)
+    wmean = tk._apply_step(params, wg, wloss, wcnt, 0.05)
+    assert torch.equal(mean, wmean)
+    for k in params:
+        assert torch.equal(stepped[k], params[k]), k
+
+
+@pytest.mark.parametrize("batch_size,n_pad", [(64, 128), (48, 144)])
+def test_train_on_windows_wide_chunks_match_jax(batch_size, n_pad):
+    """Chunks of 64 and 48 windows (K6 runs them as row tiles on the card;
+    its plain twin here) against the JAX XLA scan and the Pallas file kernel
+    in interpret mode: 1e-4."""
+    net = jmodel.SpeakerNet.new(60, 32, 16, 5, seed=0)
+    rng = np.random.default_rng(batch_size)
+    windows = rng.normal(0, 1, (n_pad, 60)).astype(np.float32)
+    tvec = np.zeros(net.capacity, np.float32)
+    tvec[2] = 1.0
+    key = jax.random.PRNGKey(5)
+    outs = {}
+    for backend in ("xla", "pallas"):
+        outs[backend] = jtrain.train_on_windows_impl(
+            net.params, jnp.asarray(windows), jnp.int32(n_pad - 20), jnp.asarray(tvec),
+            jnp.int32(5), key, jnp.float32(0.05), jnp.float32(0.2),
+            epochs=2, batch_size=batch_size, backend=backend)
+    tparams = _torch_params(net.params)
+    _, loss = ttrain.train_on_windows_impl(
+        tparams, torch.from_numpy(windows), n_pad - 20, torch.from_numpy(tvec), 5,
+        prng.PRNGKey(5), 0.05, 0.2, epochs=2, batch_size=batch_size)
+    for jp, jl in outs.values():
+        assert _max_err(jp, tparams) <= 1e-4
+        assert abs(float(loss) - float(jl)) <= 1e-4
+
+
 def test_class_growth_bit_identical():
     jnet = jmodel.SpeakerNet.new(60, 32, 16, 127, seed=0)
     tnet = tmodel.SpeakerNet.new(60, 32, 16, 127, seed=0, device="cpu")
