@@ -10,7 +10,9 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    with nvcc for sm_90a, one nvcc per source, all at once.
 2. Hold the MFCC kernels K1-K4 against their plain PyTorch versions on the
    card at the launcher's edge shapes, a clip shorter than one block and the
-   main-path shape, within 1e-3 on the base MFCCs; and each kernel
+   main-path shape, within 1e-3 on the base MFCCs (K2 and K3 also at their
+   tile's edges, an unaligned base among them, and two launches at the
+   main-path shape bit-identical); and each kernel
    backend's features against ``tests/fixtures/golden_features.npy`` on the
    golden clip, within 1e-3.
 3. Hold K5 against its plain version at the corpus training's shape
@@ -63,9 +65,13 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
 9. The bench twin, ``python -m streamz_tpu_torch.bench`` (``bench.run()``),
    once, counts zeroed and read (the winner's and K7's must move); its JSON
    line is printed.  Then time every kernel per launch with CUDA events
-   against its bound, its plain version and a library call, every frontend
-   in windows/s, and the default run by phase (ingest, features, corpus,
-   discovery, finalize) with synchronised timers.  K5 is timed in both
+   against its bound, its plain version and a library call (for K2 and K3
+   the bf16x3 DFT stage as one bf16 ``torch.matmul`` of the split planes,
+   and the FP32 one), K2 and K3 also at the bench twin's shape, every
+   frontend in windows/s, ten bench-twin calls under ``torch.profiler``
+   split into the frontend's kernel and the rest, and the default run by
+   phase (ingest, features, corpus, discovery, finalize) with synchronised
+   timers.  K5 is timed in both
    forms, beside its 3xTF32 bound and the function's FP32 bound.  K6 is
    timed per file and per live step on each route, beside the card's bound
    and one cluster's (its operations over the cluster's share of the FP32
@@ -107,6 +113,11 @@ CSRC = HERE / "streamz_tpu_torch" / "csrc"
 SOURCES = {"mfcc_base": "K1", "mfcc_v3": "K2", "mfcc_v2": "K3", "mfcc_frames": "K4",
            "corpus_grads": "K5", "file_train": "K6", "forward_probs": "K7"}
 FIXTURES = HERE / "tests" / "fixtures"
+# The edges of K2's and K3's tile (64 block rows, 63 windows, tile pairs),
+# (B, T, offset) as tests/test_torch_cuda.py::TC_EDGES holds them.
+TC_EDGES = [(1, 2000, 0), (1, 50800, 0), (1, 50400, 0), (1, 51200, 0), (43, 1200, 0),
+            (1, 76000, 0), (1, 76400, 0), (3, 208000, 0), (2, 4123, 0), (5, 12345, 0),
+            (7, 41600, 1), (4, 9999, 1)]
 # The frontend backends of the kernels, by kernel id.
 BACKENDS = {"K1": "pallas_v4", "K2": "pallas_v3", "K3": "pallas_v2", "K4": "pallas"}
 KID = {b: k for k, b in BACKENDS.items()}
@@ -431,11 +442,29 @@ def main() -> int:
             if got.shape != want.shape:
                 fail(f"{kid} shape {tuple(got.shape)} != plain {tuple(want.shape)} at {(B, T)}")
             errs[f"{B}x{T}"] = float((got - want).abs().max()) if got.numel() else 0.0
+        if kid in ("K2", "K3"):
+            # The edges of their tile, as the card tests hold them (offset 1:
+            # a base one float past a 16-byte boundary).
+            for B, T, off in TC_EDGES:
+                flat = torch.randn((B * T + off,), generator=check_gen, device=dev) * 0.1
+                pcm = flat[off:].view(B, T)
+                got = wrapper(pcm)
+                want = plain_base[kid](pcm)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or not torch.isfinite(got).all():
+                    fail(f"{kid} at {(B, T, off)}: {tuple(got.shape)} vs {tuple(want.shape)}")
+                errs[f"{B}x{T}+{off}"] = float((got - want).abs().max())
         got = wrapper(main_pcm)
         want = plain_base[kid](main_pcm)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"{kid} at the main-path shape: {tuple(got.shape)} vs {tuple(want.shape)}")
+        if kid in ("K2", "K3"):
+            again = wrapper(main_pcm)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"{kid}: two launches at the main-path shape differ")
+            del again
         errs[f"{main_pcm.shape[0]}x{main_pcm.shape[1]} (main path)"] = float(
             (got - want).abs().max())
         del got, want
@@ -996,13 +1025,28 @@ def main() -> int:
     del frames
     k4_form_ops, k4_form_bytes = k4_formulation_ops_and_bytes(B, T, mel_w)
     k4_form_ms, _ = bound(k4_form_ops, k4_form_bytes)
+    # K2's and K3's yardstick: their DFT stage in bf16x3 as one bf16
+    # torch.matmul of the pre-split planes concatenated along k,
+    # [x_hi | x_hi | x_lo] @ [d_hi; d_lo; d_hi] over the kernels' 896 basis
+    # columns, made before the timing.
+    xh, xl = mfcc_kernel.bf16_split(blocks)
+    dh, dl = mfcc_kernel.bf16_split(
+        torch.from_numpy(mfcc_kernel.kernel_constants()["basis"]).to(dev))
+    x3, d3 = torch.cat([xh, xh, xl], 1), torch.cat([dh, dl, dh], 0)
+    del xh, xl
+    bf16x3_lib_ms = time_ms(lambda: torch.matmul(x3, d3), iters=20)
+    print(f"[time] bf16x3 DFT stage, one bf16 torch.matmul [{rows}, {x3.shape[1]}] x "
+          f"[{d3.shape[0]}, {d3.shape[1]}]: {bf16x3_lib_ms:.3f} ms | {card}")
+    del x3, d3
+    # The bench twin's PCM batch, for K2 and K3 at its shape.
+    twin_pcm = bench._clip_batch(32, 10.0, dev)[0]
     for kid in ("K2", "K3", "K4"):
         if kid == "K4":  # K1's function, so K1's work bounds it
             f32_ops, kb = ops, nbytes
             bf_ops, lib_ms = 0.0, k4_lib_ms
         else:
             f32_ops, bf_ops, kb = mfcc_tc_ops_and_bytes(B, T, mel_w, kid == "K2")
-            lib_ms = k1_lib_ms
+            lib_ms = bf16x3_lib_ms
         bound_ms, bound_by = bound(f32_ops, kb, bf_ops)
         wrapper = mfcc_kernel.WRAPPERS[kid]
         ms_1 = time_ms(lambda: wrapper(main_pcm), iters=10)
@@ -1010,13 +1054,28 @@ def main() -> int:
         ms_2 = time_ms(lambda: wrapper(main_pcm), iters=10)
         timed[kid] = {"ms": [ms_1, ms_2], "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bound_ms, "bound_by": bound_by}
-        form = (f"; its frame-major formulation's own work {k4_form_ops / 1e9:.2f} "
-                f"GFLOP, {k4_form_ms:.3f} ms at the FP32 peak" if kid == "K4" else "")
+        if kid == "K4":
+            print(f"[time] K4 {wrapper.__name__} [{B}, {T}]: {ms_1:.3f} ms, again "
+                  f"{ms_2:.3f} ms; plain {plain_ms:.3f} ms; torch.matmul frame product "
+                  f"{lib_ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
+                  f"({f32_ops / 1e9:.2f} GFLOP FP32, {kb / 1e6:.1f} MB); its frame-major "
+                  f"formulation's own work {k4_form_ops / 1e9:.2f} GFLOP, "
+                  f"{k4_form_ms:.3f} ms at the FP32 peak | {card}")
+            continue
+        tb, tt = twin_pcm.shape
+        t_ops = mfcc_tc_ops_and_bytes(tb, tt, mel_w, kid == "K2")
+        twin_bound_ms, _ = bound(t_ops[0], t_ops[2], t_ops[1])
+        twin_1 = time_ms(lambda: wrapper(twin_pcm), iters=20)
+        twin_2 = time_ms(lambda: wrapper(twin_pcm), iters=20)
+        timed[kid].update({"fp32_library_ms": k1_lib_ms, "twin_ms": [twin_1, twin_2],
+                           "twin_bound_ms": twin_bound_ms})
         print(f"[time] {kid} {wrapper.__name__} [{B}, {T}]: {ms_1:.3f} ms, again "
-              f"{ms_2:.3f} ms; plain {plain_ms:.3f} ms; torch.matmul DFT stage "
-              f"{lib_ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
-              f"({f32_ops / 1e9:.2f} GFLOP FP32 + {bf_ops / 1e9:.2f} GFLOP bf16, "
-              f"{kb / 1e6:.1f} MB){form} | {card}")
+              f"{ms_2:.3f} ms; plain {plain_ms:.3f} ms; bf16x3 DFT stage (one bf16 "
+              f"torch.matmul) {lib_ms:.3f} ms, FP32 DFT stage {k1_lib_ms:.3f} ms; bound "
+              f"{bound_ms:.3f} ms by {bound_by} ({f32_ops / 1e9:.2f} GFLOP FP32 + "
+              f"{bf_ops / 1e9:.2f} GFLOP bf16, {kb / 1e6:.1f} MB); at the bench twin's "
+              f"[{tb}, {tt}]: {twin_1:.4f} ms, again {twin_2:.4f} ms, bound "
+              f"{twin_bound_ms:.4f} ms | {card}")
     timed["K4"]["formulation_ms"] = k4_form_ms
 
     ns = net.num_speakers
@@ -1038,6 +1097,39 @@ def main() -> int:
         f"{k.split('_windows')[0][5:]} {v:,.0f}" for k, v in fronts.items())
         + f" windows/s | {card}")
     report["frontends_windows_per_s"] = fronts
+    # Where a bench-twin call's device time goes: ten calls of its pipeline
+    # (the 'auto' winner, forward, vote sums) under torch.profiler, split
+    # into the frontend's kernel and the rest.
+    twin_run = bench._pipeline(bench.make_net(dev), features.frontend_core(winner), forward)
+    twin_pcm, twin_ns, twin_win = bench._clip_batch(32, 10.0, dev)
+    with torch.inference_mode():
+        twin_run(twin_pcm, twin_ns)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(10):
+                twin_run(twin_pcm, twin_ns)
+            torch.cuda.synchronize()
+            twin_wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+    twin_kernels = sorted(((e.key, e.self_device_time_total * 1e-4, e.count // 10)
+                           for e in prof.key_averages() if e.self_device_time_total > 0),
+                          key=lambda t: -t[1])
+    twin_busy_ms = sum(t for _, t, _ in twin_kernels)
+    twin_front_ms = sum(t for k, t, _ in twin_kernels if "mfcc" in k)
+    twin_split = {"wall_ms": twin_wall_ms, "device_busy_ms": twin_busy_ms,
+                  "frontend_kernel_ms": twin_front_ms, "frontend": winner,
+                  "other_device_ms": twin_busy_ms - twin_front_ms,
+                  "windows": 32 * twin_win, "kernels": twin_kernels[:8]}
+    if twin_busy_ms > 0:
+        print(f"[time] bench-twin call under the profiler ({32 * twin_win} windows, "
+              f"{winner}): {twin_wall_ms:.3f} ms wall, device busy {twin_busy_ms:.3f} ms "
+              f"= {win_kid} {twin_front_ms:.3f} ms ({twin_front_ms / twin_busy_ms:.1%}) + "
+              f"the rest {twin_busy_ms - twin_front_ms:.3f} ms; largest: " + ", ".join(
+                  f"{k[:40]} {t:.3f} ms x{n}" for k, t, n in twin_kernels[:5]) + f" | {card}")
+    else:
+        print(f"[time] bench-twin call: {twin_wall_ms:.3f} ms wall; the profiler recorded "
+              "no device time, so the split is not measured")
+    report["bench_twin_split"] = twin_split
 
     k5_params = init_params(*dims[:3], 128, seed=SEED, device=dev)
     k5_args = (k5_params, k5_x, k5_y, k5_w, N_SPEAKERS)
@@ -1281,6 +1373,11 @@ def main() -> int:
             "max_abs_err": err, "ms": min(t["ms"]), "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        if kid in ("K2", "K3"):
+            kernels["kernels"][-1].update({
+                "library": "bf16x3 DFT stage, one bf16 torch.matmul of the split planes",
+                "fp32_library_ms": t["fp32_library_ms"], "twin_ms": min(t["twin_ms"]),
+                "twin_bound_ms": t["twin_bound_ms"]})
     for entry, kid in zip(kernels["kernels"], ("K1", "K5", "K6", "K2", "K3", "K4", "K7")):
         entry["path"] = own_path[kid]
         entry["launches_by_path"] = {p: c[kid] for p, c in by_path.items() if c[kid]}

@@ -1,5 +1,5 @@
 // The bf16x3 tensor-core MFCC base tile, shared by K3 (mfcc_v2.cu, mel in
-// f32) and K2 (mfcc_v3.cu, mel in bf16x3 too).
+// f32) and K2 (mfcc_v3.cu, mel in bf16x3 too), written for Hopper (sm_90a).
 //
 // Both compute the block-parity form: each 400-sample block row r of the
 // flattened [B * nb, 400] view is projected once onto the one-sided cos and
@@ -9,30 +9,58 @@
 //   mel = power @ fb^T, base = DCT-II_20( log(max(mel, 1e-12)) ).
 //
 // The DFT runs on the tensor cores in bf16x3, which is what the TPU kernels
-// compute: x = x_hi + x_lo and d = d_hi + d_lo in bf16 (lo = bf16(a - hi)),
-// and proj = x_hi d_hi + x_hi d_lo + x_lo d_hi with f32 accumulation
-// (nvcuda::wmma, 16x16x16 bf16 fragments).  Each bf16 product is exact in
-// f32, so the three products agree with an f32 DFT to about 1e-5 relative;
-// two products (bf16x2) missed the 1e-3 feature gate on the TPU.
+// compute: x = x_hi + x_lo and d = d_hi + d_lo in bf16 (lo = bf16(a - hi),
+// both rounded to nearest even), and proj = x_hi d_hi + x_hi d_lo + x_lo d_hi,
+// the three products accumulated in f32 into one register accumulator.  Two
+// products (bf16x2) missed the 1e-3 feature gate on the TPU.
 //
-// A block owns kRows = 64 block rows and emits 63 windows: the tile's rows
-// plus its +1 halo row are staged in shared memory with cp.async (the
-// counterpart of the TPU kernel's make_async_copy), 16 rows per stage, two
-// stages in flight, and split once into bf16 hi/lo planes there.  The bins
-// are walked in 7 strips of 64 (448 >= 401): per strip each of the 8 warps
-// runs a 32 x 32 share of the [64, 128] (cos | sin) projection, reading
-// the basis fragments from device memory (the 1.4 MB of hi/lo planes stay
-// in L2), and stores it to shared memory, since a fragment's layout is
-// opaque and rows t and t+1 sit in different fragments and warps.  Then the
-// parity combine and the power, and the strip's share of the mel energies:
+// What bounds it: 3 x 2 x 400 x 896 bf16 operations per block row against
+// 1.6 KB of PCM, far above the card's bf16 ridge, so the tensor cores; and
+// the basis, 1.43 MB of hi/lo planes that every tile of rows reads through
+// L2.  The design:
 //
-//   MEL_TC = false (K3): f32, sparse over each filter's bin range;
-//   MEL_TC = true  (K2): bf16x3 on the tensor cores, p_hi mel_hi + p_hi
-//     mel_lo + p_lo mel_hi, one [16, 16] fragment of the [64, 32] mel tile
-//     per warp, carried in registers across the strips.
+// - A tile is kRows = 64 block rows (63 windows; the last row is the halo),
+//   one wgmma M.  Each CTA is persistent and walks the tiles of its cluster
+//   with three roles.  A splitter warpgroup writes a tile's PCM once as
+//   bf16 hi/lo planes into shared memory (read in place, no pad copy,
+//   16-byte loads when every row is 16-byte aligned, else 4-byte ones), in
+//   the swizzled layout that wgmma reads, each stage's k columns as soon as
+//   the previous tile's last strip has read them; then it writes the
+//   previous tile's windows (below).  The producer warp has each next
+//   tile's PCM prefetched into L2 and keeps the ring below filled.  The
+//   consumer warpgroup runs the products, the combine and the mel stage.
+// - The basis streams through a ring of kStages shared-memory stages of
+//   kStageSteps k16 steps of one strip (7 strips of 64 bins: cos | -sin, 128
+//   columns), 8 KB of hi and lo planes a step that the host lays out once,
+//   in the order and the swizzled layout that wgmma reads
+//   (kernel_constants()'s "basis_tc"), so one bulk async copy
+//   (cp.async.bulk, mbarrier complete_tx) fills a stage.  A cluster of
+//   kCluster CTAs on neighbouring row tiles shares each stage: every CTA
+//   copies its share of the stage and multicasts it to all of them, so one
+//   L2 read serves kCluster tiles.
+// - Per step the consumer warpgroup issues three wgmma m64n128k16 (hi hi,
+//   hi lo, lo hi) into one accumulator of 64 f32 registers a thread, and
+//   keeps one stage's products in flight while it issues the next stage's.
+// - The combine and the power stay in registers: a thread holds rows g and
+//   g + 8 of its warp's 16 (g = lane / 4); row t + 1 is four lanes on
+//   (__shfl_sync), and each warp's last row reads the next warp's first row
+//   through shared memory.
+// - The mel stage, per strip:
+//     MEL_TC = true  (K2): bf16x3 on the tensor cores, wgmma m64n32k16 with
+//       the power's hi and lo planes as A straight from the registers (the
+//       accumulator layout is the A fragment's), and the strip's [64 bins,
+//       32] mel planes as B, streamed through the ring as one more stage;
+//       the [64, 32] mel accumulator stays in registers across the strips.
+//     MEL_TC = false (K3): f32, sparse over each filter's bin range on the
+//       CUDA cores, from the power in shared memory (the weights there too);
+//       each (window, mel) pair has one owner thread for the whole tile, so
+//       no atomics.
+// - After the last strip the consumers write log(max(., 1e-12)) of the mel
+//   energies to shared memory; the splitters run the [26 -> 20] DCT in f32
+//   and write only the valid windows (the window that straddles two clips
+//   is dropped) while the consumers start the next tile.
 //
-// After the last strip: log(max(., 1e-12)) and the [26 -> 20] DCT in f32 on
-// the CUDA cores, and only the valid windows are written.
+// Every sum runs in a fixed order, so two launches give the same bits.
 
 #pragma once
 
@@ -40,296 +68,673 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace streamz_tc {
 
-using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 constexpr int kBlock = 400;             // samples per block = the DFT's K (25 x 16)
-constexpr int kRows = 64;               // block rows per tile (4 fragments of 16)
+constexpr int kRows = 64;               // block rows per tile: one wgmma M
 constexpr int kWins = kRows - 1;        // windows per tile; the last row is the halo
 constexpr int kStrips = 7;              // 7 * 64 = 448 >= 401 bins
 constexpr int kStripBins = 64;
 constexpr int kStripCols = 2 * kStripBins;        // cos 64 | sin 64
-constexpr int kBasisCols = kStrips * kStripCols;  // 896
-constexpr int kMelCols = 32;            // 26 mels padded to two fragments
-constexpr int kThreads = 256;           // 8 warps
+constexpr int kSteps = kBlock / 16;     // k16 steps of one strip
+constexpr int kMelCols = 32;            // 26 mels padded to a wgmma N of 32
 constexpr int kMels = 26;
 constexpr int kCoefs = 20;
-constexpr int kStageRows = 16;          // PCM rows per cp.async stage
-constexpr int kStages = kRows / kStageRows;
-constexpr int kXld = kBlock + 8;        // bf16 row stride of the PCM planes
-constexpr int kCld = kStripCols + 4;    // f32 row stride of the projection
+constexpr int kStepElems = 2 * kStripCols * 16;  // one k16 step's hi and lo planes: 8 KB
+constexpr int kStageSteps = 5;          // k16 steps a ring stage holds: 40 KB
+constexpr int kStageElems = kStageSteps * kStepElems;
+constexpr int kStages = 2;              // ring stages
+constexpr int kStripItems = kSteps / kStageSteps;  // stages per strip
+constexpr int kCluster = 2;             // CTAs sharing each basis stage (multicast)
+constexpr int kConsumers = 128;         // one warpgroup: products, combine, mel
+constexpr int kSplitters = 128;         // one warpgroup: PCM planes, DCT and stores
+constexpr int kThreads = kConsumers + kSplitters + 32;  // and one producer warp
+constexpr int kKCores = kBlock / 8;     // 50 core matrices of 8 k along a PCM row
 constexpr int kPwld = kStripBins + 1;   // f32 row stride of the power (K3)
-constexpr int kPld = kStripBins + 8;    // bf16 row stride of the power planes (K2)
-constexpr int kMlld = kMelCols + 4;     // f32 row stride of the mel energies
+constexpr int kMlld = kMelCols + 1;     // f32 row stride of the log mel energies
+constexpr int kMaxMelWeights = 1024;    // K3's sparse mel weights held in shared memory
 
-static_assert(kBlock % 16 == 0 && kRows % 16 == 0, "whole fragments");
-static_assert(kRows % kStageRows == 0, "whole stages");
-static_assert(kXld % 8 == 0 && kPld % 8 == 0 && kCld % 4 == 0 && kMlld % 4 == 0,
-              "wmma leading dimensions");
+static_assert(kBlock % 16 == 0 && kSteps % kStageSteps == 0, "whole k16 steps, whole stages");
+static_assert(2 * kMelCols * kStripBins == kStepElems, "a strip's mel planes fill one step");
+static_assert(kConsumers == 2 * kRows && kMels % 2 == 0, "K3: a row and every other mel a thread");
+static_assert(kStepElems % (8 * kCluster) == 0, "a stage splits into 16-byte parts, one a CTA");
 
-struct __align__(128) Smem {
-  bf16 xhi[kRows][kXld];  // the tile's PCM, split once: hi and lo planes
-  bf16 xlo[kRows][kXld];
-  union {
-    float stage[2][kStageRows][kBlock];  // f32 PCM rows in flight (cp.async)
-    struct {
-      float proj[kRows][kCld];  // one strip's [cos | sin] projection
-      float pw[kRows][kPwld];   // its power spectrum (K3)
-      bf16 phi[kRows][kPld];    // its power spectrum, split (K2)
-      bf16 plo[kRows][kPld];
-    } s;
-  } u;
-  float ml[kRows][kMlld];  // mel energies, then their logs
+// Shared memory, 220 KB.  The PCM planes and each ring stage hold wgmma
+// operands as K-major blocks of 16 k in the 32-byte swizzle: row n of a
+// block is 32 bytes at 32 n, its two 16-byte halves swapped when n / 4 is
+// odd, and each block starts on 256 bytes.  PCM plane: k16 step j's 64 rows at j * 2 KB.
+// Ring stage: step j of the stage at j * 8 KB, its plane p (hi, lo) at
+// + p * 4 KB, the strip's 128 columns; or mel (K2): k16 step i of the
+// strip's 64 bins at i * 1 KB + p * 4 KB, 32 mels each.
+struct __align__(256) Smem {
+  bf16 xhi[kKCores * kRows * 8];
+  bf16 xlo[kKCores * kRows * 8];
+  bf16 ring[kStages][kStageElems];
+  float xrow[2][4][kStripCols];  // each warp's first projection row, by strip parity
+  float pw[kRows][kPwld];        // one strip's power (K3)
+  float ml[kRows][kMlld];        // the tile's log mel energies
   float dct[kCoefs][kMels];
-  long long rowoff[kRows];  // PCM offset of each tile row, -1 past the end
+  unsigned long long full[kStages];   // a stage's bytes have landed
+  unsigned long long empty[kStages];  // every CTA's consumers are done with it
+  unsigned long long a_full;          // the splitters have written the tile's planes
+  unsigned long long a_free[kStripItems];  // the last strip's products have read a stage's k
+  unsigned long long ml_full;         // the consumers have written the tile's log mel
+  unsigned long long ml_free;         // the splitters have written its windows
   int mlo[kMels], mhi[kMels], moff[kMels];
+  float fbw[kMaxMelWeights];  // the sparse mel weights (K3)
 };
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+struct Params {
+  const float* pcm;
+  long long rows, T, nb;  // rows = B * nb block rows
+  int aligned16;          // every row starts 16-byte aligned
+  int tiles;
+  const bf16* basis;      // [7 strips][25 steps][kStepElems]: "basis_tc"
+  const bf16* melw;       // [7 strips][kStepElems]: "mel_tc" (K2)
+  const float* fbw;       // the sparse f32 mel weights (K3)
+  const int* mel_lo;
+  const int* mel_hi;
+  const int* mel_off;
+  const float* dct;       // [20, 26]
+  float* out;             // [B, nb - 1, 20]
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+// A wgmma shared-memory descriptor of a [rows, 16] K-major bf16 block in the
+// 32-byte swizzle (layout type 3): rows of 32 bytes, 8-row groups 256
+// bytes apart (the stride byte offset), the leading byte offset unused.
+__device__ __forceinline__ uint64_t make_desc(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count));
+}
+
+// Wait for the phase of `parity` to complete.  A wait of more than about
+// ten seconds traps, so a fault in the ring ends the launch with an error
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, uint32_t parity) {
+  long long start = 0;
+  for (uint32_t i = 1;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((i & 1023) == 0) {
+      if (start == 0) {
+        start = clock64();
+      } else if (clock64() - start > 20000000000LL) {
+        __trap();
+      }
+    }
+  }
+}
+
+// Arrive on the barrier at the same offset in CTA `cta` of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned long long* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Copy `bytes` from device memory to the same offset `dst` in every CTA of
+// the cluster, completing on each one's barrier `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          unsigned long long* bar) {
+  if constexpr (kCluster == 1) {
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+        ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+        : "memory");
+  } else {
+    const uint16_t mask = (1u << kCluster) - 1;
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+        "[%0], [%1], %2, [%3], %4;\n"
+        ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)), "h"(mask)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The consumer warpgroup's own barrier (the producer warp keeps running).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void split(float x, bf16& hi, bf16& lo) {
-  hi = __float2bfloat16_rn(x);
-  lo = __float2bfloat16_rn(x - __bfloat162float(hi));
+// Keep the compiler from moving reads or writes of an accumulator across a
+// wgmma issue or wait: the tensor cores write these registers asynchronously.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Copy tile rows stage*16 .. stage*16+15 into s.u.stage[stage & 1]; rows
-// past the batch are not copied (the split reads them as zero).  16-byte
-// copies when every row starts 16-byte aligned, else 4-byte ones.
-__device__ __forceinline__ void stage_rows(const float* pcm, bool aligned16,
-                                            int stage, Smem& s) {
-  float(*dst)[kBlock] = s.u.stage[stage & 1];
-  const int row0 = stage * kStageRows;
-  if (aligned16) {
-    for (int i = threadIdx.x; i < kStageRows * (kBlock / 4); i += kThreads) {
-      const int r = i / (kBlock / 4);
-      const int c = (i - r * (kBlock / 4)) * 4;
-      const long long off = s.rowoff[row0 + r];
-      if (off >= 0) cp_async16(&dst[r][c], pcm + off + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kStageRows * kBlock; i += kThreads) {
-      const int r = i / kBlock;
-      const int c = i - r * kBlock;
-      const long long off = s.rowoff[row0 + r];
-      if (off >= 0) cp_async4(&dst[r][c], pcm + off + c);
-    }
-  }
-  cp_async_commit();
+// D[64, 128] (+)= A[64, 16] B[16, 128]: A and B from shared memory.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// One tile of the MFCC base.  rows = B * nb block rows of the batch.
-// basis_hi/lo: [400, 896] bf16 (strip s: cos of bins 64s .. 64s+63, then
-// their -sin).  K3 reads fbw/mel_lo/mel_hi/mel_off (the sparse f32 mel
-// weights); K2 reads melw_hi/lo: [448, 32] bf16 (fb^T, zero padded).
-template <bool MEL_TC>
-__device__ __forceinline__ void mfcc_tc_tile(
-    const float* __restrict__ pcm, long long rows, long long T, long long nb,
-    bool aligned16, const bf16* __restrict__ basis_hi,
-    const bf16* __restrict__ basis_lo, const float* __restrict__ fbw,
-    const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
-    const int* __restrict__ mel_off, const bf16* __restrict__ melw_hi,
-    const bf16* __restrict__ melw_lo, const float* __restrict__ dct,
-    float* __restrict__ out, Smem& s) {
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const long long r0 = static_cast<long long>(blockIdx.x) * kWins;
-  const long long nwin = nb - 1;
+// D[64, 32] (+)= A[64, 16] B[16, 32]: A from registers (each warp's
+// m16n8k16 A fragment of its 16 rows), B from shared memory.
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float* d, const uint32_t* a,
+                                                   uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
 
-  // Block row r is clip r / nb, block r % nb: the [B, nb, 400] reshape view
-  // of the PCM, read in place without a pad copy.
-  for (int i = tid; i < kRows; i += kThreads) {
-    const long long r = r0 + i;
-    s.rowoff[i] = r < rows ? (r / nb) * T + (r % nb) * kBlock : -1;
-  }
-  for (int i = tid; i < kCoefs * kMels; i += kThreads) (&s.dct[0][0])[i] = dct[i];
-  for (int i = tid; i < kRows * kMlld; i += kThreads) (&s.ml[0][0])[i] = 0.f;
-  if (!MEL_TC && tid < kMels) {
-    s.mlo[tid] = mel_lo[tid];
-    s.mhi[tid] = mel_hi[tid];
-    s.moff[tid] = mel_off[tid];
-  }
-  __syncthreads();
 
-  // Stage the tile's 64 rows (63 windows plus the halo row), 16 at a time
-  // with the next 16 in flight, and split each stage into bf16 hi/lo.
-  stage_rows(pcm, aligned16, 0, s);
-  for (int st = 0; st < kStages; ++st) {
-    if (st + 1 < kStages) {
-      stage_rows(pcm, aligned16, st + 1, s);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float(*src)[kBlock] = s.u.stage[st & 1];
-    for (int i = tid; i < kStageRows * kBlock; i += kThreads) {
-      const int r = i / kBlock;
-      const int c = i - r * kBlock;
-      const int row = st * kStageRows + r;
-      const float x = s.rowoff[row] >= 0 ? src[r][c] : 0.f;
-      split(x, s.xhi[row][c], s.xlo[row][c]);
-    }
-    __syncthreads();  // the buffer is refilled two stages on
+// bf16 hi and lo of (a, b), packed two to a register (a in the low half),
+// both rounded to nearest even: the split of bf16_split.
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b, uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - __low2float(h), b - __high2float(h));
+  *lo = *reinterpret_cast<const uint32_t*>(&l);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The tile's PCM in L2 ahead of its split: one prefetch per 128-byte line
+// of each valid row, by the 32 lanes of the producer warp.
+__device__ __forceinline__ void prefetch_tile(const Params& p, long long tile, int lane) {
+  for (int r = lane; r < kRows; r += 32) {
+    const long long row = tile * kWins + r;
+    if (row >= p.rows) break;
+    const float* a = p.pcm + (row / p.nb) * p.T + (row % p.nb) * kBlock;
+#pragma unroll
+    for (int c = 0; c < kBlock; c += 32) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(a + c));
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(a + kBlock - 1));
+  }
+}
+
+// The splitters' share of a tile's PCM: splitter i owns row i % 64 and
+// every other core column of 8 k, a ring stage's columns (steps
+// it * kStageSteps ..) at a time; rows past the batch read as zero.
+struct SplitRow {
+  const float* src;  // the row's 400 samples, or null past the batch
+  int r, k0;         // the row in the tile, the first core column
+
+  __device__ __forceinline__ SplitRow(const Params& p, long long r0, int tid)
+      : r(tid & (kRows - 1)), k0(tid / kRows) {
+    static_assert(kSplitters == 2 * kRows, "two splitters a row");
+    const long long row = r0 + r;
+    src = row < p.rows ? p.pcm + (row / p.nb) * p.T + (row % p.nb) * kBlock : nullptr;
   }
 
-  // Warp w computes projection rows 32 (w / 4) .. +32 and columns
-  // 32 (w % 4) .. +32 of each strip: 2 x 2 fragments.
-  const int prow = 32 * (warp >> 2);
-  const int pcol = 32 * (warp & 3);
-  // K2: warp w owns the mel fragment at rows 16 (w / 2), columns 16 (w % 2).
-  const int mrow = 16 * (warp >> 1);
-  const int mcol = 16 * (warp & 1);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> mel_acc;
-  wmma::fill_fragment(mel_acc, 0.f);
-
-  for (int strip = 0; strip < kStrips; ++strip) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // Load stage it's kStageSteps core columns of the row into v.
+  __device__ __forceinline__ void load(const Params& p, int it, float (&v)[kStageSteps][8]) const {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < kStageSteps; ++j) {
+      if (src == nullptr) {
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    const int col0 = strip * kStripCols + pcol;
-    for (int k0 = 0; k0 < kBlock; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ahi[2], alo[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bhi[2], blo[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        wmma::load_matrix_sync(ahi[i], &s.xhi[prow + 16 * i][k0], kXld);
-        wmma::load_matrix_sync(alo[i], &s.xlo[prow + 16 * i][k0], kXld);
+        for (int i = 0; i < 8; ++i) v[j][i] = 0.f;
+        continue;
       }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const size_t off = static_cast<size_t>(k0) * kBasisCols + col0 + 16 * j;
-        wmma::load_matrix_sync(bhi[j], basis_hi + off, kBasisCols);
-        wmma::load_matrix_sync(blo[j], basis_lo + off, kBasisCols);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::mma_sync(acc[i][j], ahi[i], bhi[j], acc[i][j]);
-          wmma::mma_sync(acc[i][j], ahi[i], blo[j], acc[i][j]);
-          wmma::mma_sync(acc[i][j], alo[i], bhi[j], acc[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(&s.u.s.proj[prow + 16 * i][pcol + 16 * j], acc[i][j],
-                                kCld, wmma::mem_row_major);
-    __syncthreads();
-
-    // Parity combine and power; bin parity is k's parity (64 * strip is even).
-    for (int i = tid; i < kRows * kStripBins; i += kThreads) {
-      const int t = i / kStripBins;
-      const int k = i - t * kStripBins;
-      const float sg = (k & 1) ? -1.f : 1.f;
-      const float cn = t + 1 < kRows ? s.u.s.proj[t + 1][k] : 0.f;
-      const float sn = t + 1 < kRows ? s.u.s.proj[t + 1][kStripBins + k] : 0.f;
-      const float re = s.u.s.proj[t][k] + sg * cn;
-      const float im = s.u.s.proj[t][kStripBins + k] + sg * sn;
-      const float p = re * re + im * im;
-      if constexpr (MEL_TC) {
-        split(p, s.u.s.phi[t][k], s.u.s.plo[t][k]);
+      const float* a = src + 8 * (k0 + 2 * (it * kStageSteps + j));
+      if (p.aligned16) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(a));
+        const float4 y = __ldg(reinterpret_cast<const float4*>(a + 4));
+        v[j][0] = x.x; v[j][1] = x.y; v[j][2] = x.z; v[j][3] = x.w;
+        v[j][4] = y.x; v[j][5] = y.y; v[j][6] = y.z; v[j][7] = y.w;
       } else {
-        s.u.s.pw[t][k] = p;
-      }
-    }
-    __syncthreads();
-
-    const int gb0 = strip * kStripBins;
-    if constexpr (MEL_TC) {
-      // The strip's share of the mel energies in bf16x3 on the tensor cores.
 #pragma unroll
-      for (int k0 = 0; k0 < kStripBins; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> phi, plo;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> mhi, mlo;
-        wmma::load_matrix_sync(phi, &s.u.s.phi[mrow][k0], kPld);
-        wmma::load_matrix_sync(plo, &s.u.s.plo[mrow][k0], kPld);
-        const size_t off = static_cast<size_t>(gb0 + k0) * kMelCols + mcol;
-        wmma::load_matrix_sync(mhi, melw_hi + off, kMelCols);
-        wmma::load_matrix_sync(mlo, melw_lo + off, kMelCols);
-        wmma::mma_sync(mel_acc, phi, mhi, mel_acc);
-        wmma::mma_sync(mel_acc, phi, mlo, mel_acc);
-        wmma::mma_sync(mel_acc, plo, mhi, mel_acc);
-      }
-    } else {
-      // Sparse f32 mel: filter m covers bins [mlo, mhi); each (window, mel)
-      // pair has one owner thread for the whole tile, so no atomics.
-      for (int p = tid; p < kRows * kMels; p += kThreads) {
-        const int w = p / kMels;
-        const int m = p - w * kMels;
-        const int lo = max(s.mlo[m], gb0);
-        const int hi = min(s.mhi[m], gb0 + kStripBins);
-        const float* wt = fbw + s.moff[m] - s.mlo[m];
-        float sum = 0.f;
-        for (int bin = lo; bin < hi; ++bin)
-          sum = fmaf(s.u.s.pw[w][bin - gb0], __ldg(wt + bin), sum);
-        s.ml[w][m] += sum;
+        for (int i = 0; i < 8; ++i) v[j][i] = __ldg(a + i);
       }
     }
-    __syncthreads();  // the next strip overwrites the projection and power
   }
 
-  if constexpr (MEL_TC) {
-    wmma::store_matrix_sync(&s.ml[mrow][mcol], mel_acc, kMlld, wmma::mem_row_major);
-    __syncthreads();
+  // Split v into the hi and lo planes: k16 step k8 / 2, row r, 16-byte
+  // half (k8 % 2) ^ (r / 4 % 2).
+  __device__ __forceinline__ void store(int it, const float (&v)[kStageSteps][8], Smem& s) const {
+    uint4* hi = reinterpret_cast<uint4*>(s.xhi);
+    uint4* lo = reinterpret_cast<uint4*>(s.xlo);
+#pragma unroll
+    for (int j = 0; j < kStageSteps; ++j) {
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = pack_bf16(v[j][2 * i], v[j][2 * i + 1], &l[i]);
+      const int k8 = k0 + 2 * (it * kStageSteps + j);
+      const int at = (k8 >> 1) * 2 * kRows + 2 * r + ((k8 & 1) ^ ((r >> 2) & 1));
+      hi[at] = make_uint4(h[0], h[1], h[2], h[3]);
+      lo[at] = make_uint4(l[0], l[1], l[2], l[3]);
+    }
   }
+};
 
-  // Epilogue in f32: log, then the [26 -> 20] DCT; write valid windows only.
-  // A window is valid when its block and the next are in the same clip (the
-  // window that straddles two clips is dropped) and inside the batch.
-  for (int p = tid; p < kRows * kMels; p += kThreads) {
-    const int w = p / kMels;
-    const int m = p - w * kMels;
-    s.ml[w][m] = logf(fmaxf(s.ml[w][m], 1e-12f));
-  }
-  __syncthreads();
-  for (int o = tid; o < kRows * kCoefs; o += kThreads) {
+// The [26 -> 20] DCT of the tile's log mel energies (s.ml), written for its
+// valid windows only: a window is valid when its block and the next are in
+// the same clip (the window that straddles two clips is dropped) and inside
+// the batch.
+__device__ __forceinline__ void write_windows(const Params& p, long long r0, int tid,
+                                              int nthreads, const Smem& s) {
+  const long long nwin = p.nb - 1;
+  const long long clip0 = r0 / p.nb, t0 = r0 - clip0 * p.nb;
+  for (int o = tid; o < kWins * kCoefs; o += nthreads) {
     const int w = o / kCoefs;
     const int c = o - w * kCoefs;
-    const long long r = r0 + w;
-    if (w >= kWins || r >= rows) continue;
-    const long long t = r % nb;
+    if (r0 + w >= p.rows) break;
+    long long clip = clip0, t = t0 + w;  // block row r0 + w is block t of clip
+    while (t >= p.nb) {
+      t -= p.nb;
+      ++clip;
+    }
     if (t >= nwin) continue;
     float sum = 0.f;
 #pragma unroll
     for (int m = 0; m < kMels; ++m) sum = fmaf(s.ml[w][m], s.dct[c][m], sum);
-    out[((r / nb) * nwin + t) * kCoefs + c] = sum;
+    p.out[(clip * nwin + t) * kCoefs + c] = sum;
   }
 }
 
-// Grid size for B * nb block rows; 0 when there is no window.
+// Hand a ring stage back: every CTA of the cluster may refill it once all
+// their consumer warps are done with it.  Lane c of each warp signals CTA c.
+__device__ __forceinline__ void release(Smem& s, int stage, int lane) {
+  if (lane < kCluster) mbar_arrive_cluster(&s.empty[stage], lane);
+}
+
+// The whole kernel: each source's __global__ calls it with its dynamic
+// shared memory, kThreads threads a block, clusters of kCluster blocks.
+template <bool MEL_TC>
+__device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
+  constexpr int kItems = kStripItems + (MEL_TC ? 1 : 0);  // ring stages per strip
+  const int tid = threadIdx.x;
+  const uint32_t rank = kCluster > 1 ? cluster_rank() : 0;
+  const int cluster = blockIdx.x / kCluster;
+  const int clusters = gridDim.x / kCluster;
+  const int groups = (p.tiles + kCluster - 1) / kCluster;  // tiles of a cluster, together
+
+  if (tid == 0) {
+    if (smem_addr(&s) & 255) __trap();  // the swizzle repeats every 256 bytes
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&s.full[i], 1);
+      mbar_init(&s.empty[i], 4 * kCluster);
+    }
+    mbar_init(&s.a_full, kSplitters);
+    for (int i = 0; i < kStripItems; ++i) mbar_init(&s.a_free[i], kConsumers);
+    mbar_init(&s.ml_full, kConsumers);
+    mbar_init(&s.ml_free, kSplitters);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < kCoefs * kMels; i += kThreads) (&s.dct[0][0])[i] = p.dct[i];
+  if constexpr (!MEL_TC) {
+    if (tid < kMels) {
+      s.mlo[tid] = p.mel_lo[tid];
+      s.mhi[tid] = p.mel_hi[tid];
+      s.moff[tid] = p.mel_off[tid];
+    }
+    const int nw = p.mel_off[kMels - 1] + p.mel_hi[kMels - 1] - p.mel_lo[kMels - 1];
+    if (nw > kMaxMelWeights) __trap();  // the host's filterbank outgrew the kernel
+    for (int i = tid; i < nw; i += kThreads) s.fbw[i] = p.fbw[i];
+  }
+  // No CTA copies into a peer before the peer's barriers exist.
+  cluster_sync();
+
+  if (tid >= kConsumers && tid < kConsumers + kSplitters) {
+    // The splitter warpgroup: each tile's PCM planes, a stage's k columns
+    // as soon as the previous tile's last strip has read them, so the split
+    // overlaps that strip; then the previous tile's DCT and stores, which
+    // overlap this tile's products.
+    const int t = tid - kConsumers;
+    uint32_t k = 0;  // tiles split
+    long long prev_r0 = 0;
+    for (int grp = cluster; grp < groups; grp += clusters, ++k) {
+      const long long r0 = (static_cast<long long>(grp) * kCluster + rank) * kWins;
+      // Each stage's samples are loaded a stage ahead, before its columns
+      // are free.
+      const SplitRow row(p, r0, t);
+      float v[2][kStageSteps][8];
+      row.load(p, 0, v[0]);
+#pragma unroll
+      for (int it = 0; it < kStripItems; ++it) {
+        if (it + 1 < kStripItems) row.load(p, it + 1, v[(it + 1) & 1]);
+        if (k > 0) mbar_wait(&s.a_free[it], (k - 1) & 1);
+        row.store(it, v[it & 1], s);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&s.a_full);
+      if (k > 0) {
+        mbar_wait(&s.ml_full, (k - 1) & 1);
+        write_windows(p, prev_r0, t, kSplitters, s);
+        mbar_arrive(&s.ml_free);
+      }
+      prev_r0 = r0;
+    }
+    if (k > 0) {
+      mbar_wait(&s.ml_full, (k - 1) & 1);
+      write_windows(p, prev_r0, t, kSplitters, s);
+    }
+  } else if (tid >= kConsumers) {
+    // The producer warp: the L2 prefetch of each next tile by all lanes,
+    // the ring by lane 0.  Every CTA of the cluster walks the same stages.
+    const int lane = tid - kConsumers - kSplitters;
+    if (cluster < groups) prefetch_tile(p, static_cast<long long>(cluster) * kCluster + rank, lane);
+    uint32_t n = 0;
+    for (int grp = cluster; grp < groups; grp += clusters) {
+      const long long next = static_cast<long long>(grp + clusters) * kCluster + rank;
+      if (next < p.tiles) prefetch_tile(p, next, lane);
+      if (lane == 0) {
+        for (int strip = 0; strip < kStrips; ++strip) {
+          for (int it = 0; it < kItems; ++it, ++n) {
+            const int st = n % kStages;
+            mbar_wait(&s.empty[st], ((n / kStages) & 1) ^ 1);
+            // kStageSteps k16 steps of the strip, or its mel planes.
+            const int elems = it < kStripItems ? kStageElems : kStepElems;
+            mbar_expect_tx(&s.full[st], elems * sizeof(bf16));
+            const bf16* src =
+                it < kStripItems
+                    ? p.basis + (static_cast<size_t>(strip) * kSteps + it * kStageSteps) * kStepElems
+                    : p.melw + static_cast<size_t>(strip) * kStepElems;
+            const int part = elems / kCluster;
+            bulk_copy(s.ring[st] + rank * part, src + rank * part, part * sizeof(bf16),
+                      &s.full[st]);
+          }
+        }
+      }
+      __syncwarp();
+    }
+  } else {
+    // The consumer warpgroup.  Thread (warp, g = lane / 4, q = lane % 4)
+    // holds, of a [64, N] accumulator, rows 16 warp + g and + 8 at columns
+    // 8 j + 2 q and + 1: element 4 j + e is row + 8 (e / 2), column + e % 2.
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+    uint32_t n = 0;
+    uint32_t k = 0;  // tiles done
+    int parity = 0;  // the xrow buffer, by strip
+    float acc[64];   // one strip's [64, 128] projection
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int grp = cluster; grp < groups; grp += clusters, ++k) {
+      mbar_wait(&s.a_full, k & 1);  // the tile's planes are written
+      float mel[16];                         // K2: the tile's [64, 32] mel energies
+      float ml3[kRows * kMels / kConsumers];  // K3: this thread's (window, mel) sums
+#pragma unroll
+      for (int i = 0; i < 16; ++i) mel[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kRows * kMels / kConsumers; ++i) ml3[i] = 0.f;
+
+      for (int strip = 0; strip < kStrips; ++strip) {
+        // The strip's [64, 128] projection: 25 k16 steps of three bf16
+        // products, kStageSteps from each ring stage, the previous stage's
+        // products in flight while the next stage's are issued.
+        int prev = 0;
+        for (int it = 0; it < kStripItems; ++it, ++n) {
+          const int st = n % kStages;
+          mbar_wait(&s.full[st], (n / kStages) & 1);
+          fence_regs<64>(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < kStageSteps; ++j) {
+            const int ks = it * kStageSteps + j;
+            const uint64_t bhi = make_desc(s.ring[st] + j * kStepElems);
+            const uint64_t blo = make_desc(s.ring[st] + j * kStepElems + kStepElems / 2);
+            const uint64_t ahi = make_desc(s.xhi + ks * 16 * kRows);
+            const uint64_t alo = make_desc(s.xlo + ks * 16 * kRows);
+            wgmma_m64n128k16_ss(acc, ahi, bhi, ks > 0);
+            wgmma_m64n128k16_ss(acc, ahi, blo, 1);
+            wgmma_m64n128k16_ss(acc, alo, bhi, 1);
+          }
+          wgmma_commit();
+          fence_regs<64>(acc);
+          if (it > 0) {
+            wgmma_wait<1>();
+            release(s, prev, lane);
+            if (strip == kStrips - 1) mbar_arrive(&s.a_free[it - 1]);  // its k is read
+          }
+          prev = st;
+        }
+        wgmma_wait<0>();
+        fence_regs<64>(acc);
+        release(s, prev, lane);
+        if (strip == kStrips - 1) mbar_arrive(&s.a_free[kStripItems - 1]);
+
+        // Parity combine and power in registers.  Bin parity is column
+        // parity (64 * strip is even).  Row t + 1 of row g is lane + 4's row
+        // g + 1, of g = 7 lane q's row 8; of row g + 8, lane + 4's row g + 9,
+        // of 15 the next warp's row 0, through shared memory (zero past the
+        // tile: row 63 is the halo, its window is not written).
+        float(*xrow)[kStripCols] = s.xrow[parity];
+        parity ^= 1;
+        if (g == 0) {
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            xrow[warp][8 * j + 2 * q] = acc[4 * j];
+            xrow[warp][8 * j + 2 * q + 1] = acc[4 * j + 1];
+          }
+        }
+        consumers_sync();
+        const int src_lane = (lane + 4) & 31;
+        float pw[32];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float cu[4], su[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            cu[e] = __shfl_sync(0xffffffffu, acc[4 * j + e], src_lane);
+            su[e] = __shfl_sync(0xffffffffu, acc[4 * (j + 8) + e], src_lane);
+          }
+          const int col = 8 * j + 2 * q;
+          float xc[2] = {0.f, 0.f}, xs[2] = {0.f, 0.f};
+          if (g == 7 && warp < 3) {
+            xc[0] = xrow[warp + 1][col];
+            xc[1] = xrow[warp + 1][col + 1];
+            xs[0] = xrow[warp + 1][kStripBins + col];
+            xs[1] = xrow[warp + 1][kStripBins + col + 1];
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float cn = g < 7 ? cu[e] : (e < 2 ? cu[e + 2] : xc[e - 2]);
+            const float sn = g < 7 ? su[e] : (e < 2 ? su[e + 2] : xs[e - 2]);
+            const float sg = (e & 1) ? -1.f : 1.f;
+            const float re = acc[4 * j + e] + sg * cn;
+            const float im = acc[4 * (j + 8) + e] + sg * sn;
+            pw[4 * j + e] = re * re + im * im;
+          }
+        }
+
+        if constexpr (MEL_TC) {
+          // The strip's share of the mel energies: the power's hi and lo
+          // planes as A fragments (k16 block i is columns j = 2i, 2i + 1),
+          // the mel planes from the strip's ring stage as B.
+          uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              const int j = 2 * i + (f >> 1), e = (f & 1) * 2;
+              ahi[i][f] = pack_bf16(pw[4 * j + e], pw[4 * j + e + 1], &alo[i][f]);
+            }
+          const int st = n % kStages;
+          mbar_wait(&s.full[st], (n / kStages) & 1);
+          ++n;
+          fence_regs<16>(mel);
+          wgmma_fence();
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const uint64_t mhi = make_desc(s.ring[st] + i * 16 * kMelCols);
+            const uint64_t mlo = make_desc(s.ring[st] + kStepElems / 2 + i * 16 * kMelCols);
+            wgmma_m64n32k16_rs(mel, ahi[i], mhi, 1);
+            wgmma_m64n32k16_rs(mel, ahi[i], mlo, 1);
+            wgmma_m64n32k16_rs(mel, alo[i], mhi, 1);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs<16>(mel);
+          release(s, st, lane);
+        } else {
+          // Sparse f32 mel over each filter's bin range, from shared memory:
+          // thread t owns row t % 64 and the mels of parity t / 64, so a
+          // warp's lanes walk one filter's bins together.
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              s.pw[16 * warp + g + 8 * (e >> 1)][8 * j + 2 * q + (e & 1)] = pw[4 * j + e];
+          consumers_sync();
+          const int gb0 = strip * kStripBins;
+#pragma unroll
+          for (int i = 0; i < kRows * kMels / kConsumers; ++i) {
+            const int w = tid & (kRows - 1);  // a warp: one mel, 32 rows
+            const int m = 2 * i + tid / kRows;
+            const int lo = max(s.mlo[m], gb0);
+            const int hi = min(s.mhi[m], gb0 + kStripBins);
+            const float* wt = s.fbw + s.moff[m] - s.mlo[m];
+            float sum = 0.f;
+            for (int bin = lo; bin < hi; ++bin) sum = fmaf(s.pw[w][bin - gb0], wt[bin], sum);
+            ml3[i] += sum;
+          }
+          consumers_sync();  // the next strip overwrites the power
+        }
+      }
+
+      // The log mel energies in f32, handed to the splitters for the DCT and
+      // the stores once they are done with the previous tile's.
+      if (k > 0) mbar_wait(&s.ml_free, (k - 1) & 1);
+      if constexpr (MEL_TC) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s.ml[16 * warp + g + 8 * (e >> 1)][8 * j + 2 * q + (e & 1)] =
+                logf(fmaxf(mel[4 * j + e], 1e-12f));
+      } else {
+#pragma unroll
+        for (int i = 0; i < kRows * kMels / kConsumers; ++i)
+          s.ml[tid & (kRows - 1)][2 * i + tid / kRows] = logf(fmaxf(ml3[i], 1e-12f));
+      }
+      mbar_arrive(&s.ml_full);
+    }
+  }
+  // No CTA leaves while a peer may still copy into it or arrive on its
+  // barriers.
+  cluster_sync();
+}
+
+// Tiles for B * nb block rows; 0 when there is no window.
 inline long long tiles_for(long long rows) {
   return rows > 1 ? (rows - 1 + kWins - 1) / kWins : 0;
 }
 
-// Whether every tile row starts 16-byte aligned, so cp.async may copy 16
+// Whether every tile row starts 16-byte aligned, so the split may load 16
 // bytes at a time.
 inline bool rows_aligned16(const float* pcm, long long T) {
   return T % 4 == 0 && (reinterpret_cast<std::uintptr_t>(pcm) & 15) == 0;
+}
+
+// Launch `kernel` (a source's __global__ around mfcc_tc_tile) on `stream`:
+// persistent clusters, as many as fit on the card at once, no more than the
+// tiles need.  Returns the CUDA error of the launch; it does not
+// synchronise.
+inline cudaError_t launch(void (*kernel)(Params), Params p, long long B, cudaStream_t stream) {
+  if (B <= 0 || p.nb < 2) return cudaErrorInvalidValue;
+  p.rows = B * p.nb;
+  const long long tiles = tiles_for(p.rows);
+  if (tiles > INT_MAX - kCluster) return cudaErrorInvalidValue;
+  p.tiles = static_cast<int>(tiles);
+  p.aligned16 = rows_aligned16(p.pcm, p.T);
+  const int smem = static_cast<int>(sizeof(Smem));
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // The clusters that fit at once, per device (queried once per source).
+  static int fit[64] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (fit[dev] == 0) {
+    err = cudaOccupancyMaxActiveClusters(&fit[dev], kernel, &cfg);
+    if (err != cudaSuccess) return err;
+    if (fit[dev] < 1) return cudaErrorLaunchOutOfResources;
+  }
+  const long long groups = (tiles + kCluster - 1) / kCluster;
+  cfg.gridDim = dim3(static_cast<unsigned>(kCluster * (groups < fit[dev] ? groups : fit[dev])));
+  err = cudaLaunchKernelEx(&cfg, kernel, p);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace streamz_tc

@@ -14,9 +14,12 @@ pallas      ``mfcc_base_frames`` ``mfcc_frames.cu`` (K4) ``_mfcc_kernel``
 
 K1 and K4 are FP32 FMA on the CUDA cores (K1 the block-parity form, K4 the
 frame-major 800-tap DFT); K3 and K2 run the DFT in bf16x3 on the tensor cores
-(``nvcuda::wmma``), with the mel stage in f32 (K3) or in bf16x3 too (K2), as
-the TPU kernels compute.  :mod:`streamz_tpu_torch._cuda_build` builds each
-source with ``nvcc`` for ``sm_90a`` at first use into
+(``wgmma``, one tile design in ``csrc/mfcc_tc.cuh``), with the mel stage in
+f32 (K3) or in bf16x3 too (K2), as the TPU kernels compute.  They stream the
+DFT basis (and K2 its mel weights) through shared memory in the stage order
+and layout that the host lays out once: ``kernel_constants()``'s
+``"basis_tc"`` and ``"mel_tc"``.  :mod:`streamz_tpu_torch._cuda_build`
+builds each source with ``nvcc`` for ``sm_90a`` at first use into
 ``streamz_tpu_torch/_build/`` and loads its plain C entry point with
 ``ctypes``; kernels launch on PyTorch's current stream.
 
@@ -50,6 +53,7 @@ NVCC_FLAGS = _cuda_build.NVCC_FLAGS
 _GROUP_BINS = 64  # must match kGroupBins / kStripBins in the .cuh sources
 _GROUPS = 7       # must match kGroups / kStrips
 _MEL_COLS = 32    # must match kMelCols (mfcc_tc.cuh)
+_STEPS = 25       # k16 steps of the 400-sample block: kSteps (mfcc_tc.cuh)
 _WIN = config.WINDOW_SIZE
 _BLOCK = config.HOP_SIZE
 
@@ -58,8 +62,8 @@ _BLOCK = config.HOP_SIZE
 _ENTRIES = {
     "mfcc_base": ("streamz_mfcc_base_v4", 6),
     "mfcc_frames": ("streamz_mfcc_base_frames", 6),
-    "mfcc_v2": ("streamz_mfcc_base_v2", 7),
-    "mfcc_v3": ("streamz_mfcc_base_v3", 5),
+    "mfcc_v2": ("streamz_mfcc_base_v2", 6),
+    "mfcc_v3": ("streamz_mfcc_base_v3", 3),
 }
 _SMEM = {
     "mfcc_base": "streamz_mfcc_base_v4_smem_bytes",
@@ -117,16 +121,61 @@ def _frame_dft() -> tuple:
     return np.cos(ang), -np.sin(ang)
 
 
+def _bf16_bits(a: np.ndarray) -> tuple:
+    """:func:`bf16_split` of a host array as two uint16 arrays of bf16 bits."""
+    return tuple(p.view(torch.int16).numpy().view(np.uint16)
+                 for p in bf16_split(torch.from_numpy(np.asarray(a, np.float32))))
+
+
+def _swizzle32(blocks: np.ndarray) -> np.ndarray:
+    """[..., rows, 2, 8] K-major blocks of 16 k in wgmma's 32-byte swizzle:
+    the two 16-byte halves of row n swapped when n // 4 is odd."""
+    rows = blocks.shape[-3]
+    odd = (np.arange(rows) >> 2) & 1 == 1
+    out = blocks.copy()
+    out[..., odd, :, :] = blocks[..., odd, ::-1, :]
+    return out
+
+
+def tc_basis_stages(basis: np.ndarray) -> np.ndarray:
+    """The [400, 896] grouped basis as K2's and K3's ring stages: uint16
+    bf16 bits [7 strips, 25 k16 steps, 4096].  A stage is the hi plane then
+    the lo plane of one strip's 128 columns (cos | -sin) at 16 k, each a
+    K-major block: column n's 16 k in 32 bytes at 32 n, in wgmma's 32-byte
+    swizzle (:func:`_swizzle32`)."""
+    planes = []
+    for plane in _bf16_bits(basis):
+        # [k = (step, k8, kk), col = (strip, n)] -> [strip, step, n, k8, kk]
+        p = plane.reshape(_STEPS, 2, 8, _GROUPS, 128).transpose(3, 0, 4, 1, 2)
+        planes.append(_swizzle32(p).reshape(_GROUPS, _STEPS, -1))
+    return np.ascontiguousarray(np.concatenate(planes, axis=2))
+
+
+def tc_mel_stages(mel_dense: np.ndarray) -> np.ndarray:
+    """The [448, 32] dense filterbank as K2's mel stages: uint16 bf16 bits
+    [7 strips, 4096], the hi plane then the lo plane of the strip's 64 bins
+    x 32 mels as four K-major blocks of 16 bins (1 KB each): mel n's 16 bins
+    in 32 bytes at 32 n, in wgmma's 32-byte swizzle."""
+    planes = []
+    for plane in _bf16_bits(mel_dense):
+        # [bin = (strip, step, k8, kk), mel n] -> [strip, step, n, k8, kk]
+        p = plane.reshape(_GROUPS, 4, 2, 8, _MEL_COLS).transpose(0, 1, 4, 2, 3)
+        planes.append(_swizzle32(p).reshape(_GROUPS, -1))
+    return np.ascontiguousarray(np.concatenate(planes, axis=1))
+
+
 def kernel_constants() -> dict:
     """Host (numpy) constants of the kernels' layouts.
 
-    - ``basis`` [400, 896]: the block basis in 7 groups of 64 bins (K1; K2
-      and K3 take its bf16 hi/lo split).
+    - ``basis`` [400, 896]: the block basis in 7 groups of 64 bins (K1).
+    - ``basis_tc`` [7, 25, 4096] uint16: its bf16 hi/lo split as K2's and
+      K3's ring stages (:func:`tc_basis_stages`).
     - ``frame_basis`` [800, 896]: the full-window basis, same grouping (K4).
     - ``fbw``: the mel weights, each filter's contiguous nonzero bin range
       [``mel_lo[m]``, ``mel_hi[m]``) stored from offset ``mel_off[m]``.
-    - ``mel_dense`` [448, 32]: the filterbank transposed and zero padded
-      (K2 takes its bf16 hi/lo split).
+    - ``mel_dense`` [448, 32]: the filterbank transposed and zero padded.
+    - ``mel_tc`` [7, 4096] uint16: its bf16 hi/lo split as K2's mel stages
+      (:func:`tc_mel_stages`).
     - ``dct`` [20, 26]: the unnormalized DCT-II.
     """
     ct, st = melmod.dft_block_matrices()
@@ -141,14 +190,17 @@ def kernel_constants() -> dict:
         weights.extend(row[a:b])
     mel_dense = np.zeros((_GROUPS * _GROUP_BINS, _MEL_COLS), np.float32)
     mel_dense[: fb.shape[1], : fb.shape[0]] = fb.T
+    basis = _grouped(ct, st)
     return {
-        "basis": _grouped(ct, st),
+        "basis": basis,
+        "basis_tc": tc_basis_stages(basis),
         "frame_basis": _grouped(*_frame_dft()),
         "fbw": np.asarray(weights, np.float32),
         "mel_lo": np.asarray(lo, np.int32),
         "mel_hi": np.asarray(hi, np.int32),
         "mel_off": np.asarray(off, np.int32),
         "mel_dense": mel_dense,
+        "mel_tc": tc_mel_stages(mel_dense),
         "dct": np.asarray(melmod.dct2_matrix(), np.float32),
     }
 
@@ -167,17 +219,19 @@ def _device_constants(device: torch.device, name: str):
     c = kernel_constants()
 
     def t(key):
-        return torch.from_numpy(np.ascontiguousarray(c[key])).to(device)
+        a = np.ascontiguousarray(c[key])
+        if a.dtype == np.uint16:  # bf16 bits
+            return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
 
     sparse_mel = (t("fbw"), t("mel_lo"), t("mel_hi"), t("mel_off"))
     if name == "mfcc_base":
         return (t("basis"), *sparse_mel, t("dct"))
     if name == "mfcc_frames":
         return (t("frame_basis"), *sparse_mel, t("dct"))
-    basis = bf16_split(t("basis"))
     if name == "mfcc_v2":
-        return (*basis, *sparse_mel, t("dct"))
-    return (*basis, *bf16_split(t("mel_dense")), t("dct"))
+        return (t("basis_tc"), *sparse_mel, t("dct"))
+    return (t("basis_tc"), t("mel_tc"), t("dct"))
 
 
 # ---------------------------------------------------------------------------

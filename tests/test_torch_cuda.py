@@ -472,6 +472,57 @@ def test_mfcc_kernels_match_plain_on_card(cuda_device, kid, B, T):
         assert float((got - want).abs().max()) <= 1e-3
 
 
+# The edges of K2's and K3's tile (mfcc_tc.cuh): 64 block rows, 63 windows a
+# tile, tiles walked in pairs by clusters of two CTAs.  (B, T, offset):
+# fewer rows than one tile; B * nb = 127 (two whole tiles), 126 and 128
+# around it, 129 (one past two tiles of 64 rows); 190 and 191 (three tiles:
+# a cluster with one CTA idle, and four); clip boundaries inside a tile
+# (nb = 3 and 520); T % 400 != 0; T % 4 != 0; a base one float past a
+# 16-byte boundary (a view at offset 1), with T % 4 == 0 and != 0.
+TC_EDGES = [(1, 2000, 0), (1, 50800, 0), (1, 50400, 0), (1, 51200, 0), (43, 1200, 0),
+            (1, 76000, 0), (1, 76400, 0), (3, 208000, 0), (2, 4123, 0), (5, 12345, 0),
+            (7, 41600, 1), (4, 9999, 1)]
+
+
+def _offset_pcm(B, T, offset, seed, device):
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.normal(0, 0.1, B * T + offset).astype(np.float32))
+    return flat.to(device)[offset:].view(B, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kid", ["K2", "K3"])
+@pytest.mark.parametrize("B,T,offset", TC_EDGES)
+def test_tc_tile_edges_match_plain_on_card(cuda_device, kid, B, T, offset):
+    """K2 and K3 at shapes that cross the tile's edges: 1e-3 on the base
+    MFCCs against the plain bf16x3 version, one launch, finite."""
+    wrapper = mfcc_kernel.WRAPPERS[kid]
+    pcm = _offset_pcm(B, T, offset, B * 7919 + T, cuda_device)
+    assert pcm.is_contiguous() and (pcm.data_ptr() % 16 != 0) == bool(offset)
+    before = wrapper.launches
+    got = wrapper(pcm)
+    torch.cuda.synchronize()
+    want = _MFCC_PLAIN[kid](pcm)
+    assert got.shape == want.shape == (B, T // 400 - 1, 20)
+    assert wrapper.launches == before + 1
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kid", ["K2", "K3"])
+def test_tc_tile_two_launches_give_the_same_bits(cuda_device, kid):
+    """No atomics and a fixed summation order: the same bits twice, over
+    many tile pairs and an unaligned base."""
+    wrapper = mfcc_kernel.WRAPPERS[kid]
+    for B, T, offset in ((9, 208000, 0), (5, 12345, 1)):
+        pcm = _offset_pcm(B, T, offset, 5, cuda_device)
+        a = wrapper(pcm)
+        b = wrapper(pcm)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kid", ["K1", "K2", "K3", "K4"])
 def test_mfcc_kernels_on_silence_and_odd_lengths(cuda_device, kid):

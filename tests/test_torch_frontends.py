@@ -112,6 +112,42 @@ def test_kernel_constants_layouts():
     np.testing.assert_allclose((hi.float() + lo.float()).numpy(), mel, rtol=1e-5)
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def _unswizzle32(blocks):
+    """Undo wgmma's 32-byte swizzle on [..., rows, 2, 8] blocks: row n's two
+    16-byte halves are swapped when n // 4 is odd."""
+    out = blocks.copy()
+    odd = (np.arange(blocks.shape[-3]) // 4) % 2 == 1
+    out[..., odd, :, :] = out[..., odd, :, :][..., ::-1, :]
+    return out
+
+
+def test_tc_stage_layouts_unpermute_to_the_split_constants():
+    """K2's and K3's ring stages, un-permuted from wgmma's swizzled K-major
+    blocks, are ``basis`` and ``mel_dense`` split into bf16 hi and lo, bit
+    for bit: stage (strip, step) holds plane p at p * 2048 elements, column
+    n's 16 k at 16 n; a mel stage holds k16 step i at 512 i + 2048 p, mel
+    n's 16 bins at 16 n."""
+    c = mfcc_kernel.kernel_constants()
+    stages = c["basis_tc"]
+    assert stages.shape == (7, 25, 4096) and stages.dtype == np.uint16
+    # [strip, step, plane, n, k8, kk] -> plane [k = (step, k8, kk), col = (strip, n)]
+    s = _unswizzle32(stages.reshape(7, 25, 2, 128, 2, 8))
+    for plane, want in zip(range(2), mfcc_kernel.bf16_split(torch.from_numpy(c["basis"]))):
+        got = s[:, :, plane].transpose(1, 3, 4, 0, 2).reshape(400, 896)
+        np.testing.assert_array_equal(got, _bits(want))
+    mel = c["mel_tc"]
+    assert mel.shape == (7, 4096) and mel.dtype == np.uint16
+    # [strip, plane, step, n, k8, kk] -> plane [bin = (strip, step, k8, kk), mel n]
+    m = _unswizzle32(mel.reshape(7, 2, 4, 32, 2, 8))
+    for plane, want in zip(range(2), mfcc_kernel.bf16_split(torch.from_numpy(c["mel_dense"]))):
+        got = m[:, plane].transpose(0, 1, 3, 4, 2).reshape(448, 32)
+        np.testing.assert_array_equal(got, _bits(want))
+
+
 # ---------------------------------------------------------------------------
 # The frontend as a whole: every backend.
 # ---------------------------------------------------------------------------
