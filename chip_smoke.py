@@ -9,10 +9,10 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    mfcc_v3,mfcc_v2,mfcc_frames,corpus_grads,file_train,forward_probs}.cu``)
    with nvcc for sm_90a, one nvcc per source, all at once.
 2. Hold the MFCC kernels K1-K4 against their plain PyTorch versions on the
-   card at the launcher's edge shapes, a clip shorter than one block and the
-   main-path shape, within 1e-3 on the base MFCCs (K2 and K3 also at their
-   tile's edges, an unaligned base among them, and two launches at the
-   main-path shape bit-identical); and each kernel
+   card at the launcher's edge shapes, a clip shorter than one block, the
+   edges of their shared tile (an unaligned base and T % 4 != 0 among
+   them) and the main-path shape, within 1e-3 on the base MFCCs, two
+   launches at the main-path shape bit-identical; and each kernel
    backend's features against ``tests/fixtures/golden_features.npy`` on the
    golden clip, within 1e-3.
 3. Hold K5 against its plain version at the corpus training's shape
@@ -65,9 +65,11 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
 9. The bench twin, ``python -m streamz_tpu_torch.bench`` (``bench.run()``),
    once, counts zeroed and read (the winner's and K7's must move); its JSON
    line is printed.  Then time every kernel per launch with CUDA events
-   against its bound, its plain version and a library call (for K2 and K3
-   the bf16x3 DFT stage as one bf16 ``torch.matmul`` of the split planes,
-   and the FP32 one), K2 and K3 also at the bench twin's shape, every
+   against its bound, its plain version and a library call (for K1-K4 the
+   bf16x3 block DFT stage as one bf16 ``torch.matmul`` of the split planes,
+   and the FP32 one; K4 is held to the work its output needs, K3's, with
+   its own 800-tap formulation's bound and frame product beside), K1-K4
+   also at the bench twin's shape, every
    frontend in windows/s, ten bench-twin calls under ``torch.profiler``
    split into the frontend's kernel and the rest, and the default run by
    phase (ingest, features, corpus, discovery, finalize) with synchronised
@@ -113,7 +115,7 @@ CSRC = HERE / "streamz_tpu_torch" / "csrc"
 SOURCES = {"mfcc_base": "K1", "mfcc_v3": "K2", "mfcc_v2": "K3", "mfcc_frames": "K4",
            "corpus_grads": "K5", "file_train": "K6", "forward_probs": "K7"}
 FIXTURES = HERE / "tests" / "fixtures"
-# The edges of K2's and K3's tile (64 block rows, 63 windows, tile pairs),
+# The edges of the tile of K1-K4 (64 block rows, 63 windows, tile pairs),
 # (B, T, offset) as tests/test_torch_cuda.py::TC_EDGES holds them.
 TC_EDGES = [(1, 2000, 0), (1, 50800, 0), (1, 50400, 0), (1, 51200, 0), (43, 1200, 0),
             (1, 76000, 0), (1, 76400, 0), (3, 208000, 0), (2, 4123, 0), (5, 12345, 0),
@@ -193,50 +195,27 @@ def synth_clips(f0, env, speakers, gen: torch.Generator, dev,
     return out.round().clamp(-32768, 32767).to(torch.int16).cpu().numpy()
 
 
-def k1_ops_and_bytes(B: int, T: int, mel_weights: int):
-    """Operations and bytes of the MFCC base on [B, T] PCM, counted from the
-    function (not the kernel): the [400 x 802] block DFT per block row, the
-    combine and power, the mel product over the filterbank's ``mel_weights``
-    nonzero weights (each filter's contiguous bin range), the log and the
-    [26 -> 20] DCT per window; each input read once, the output written once."""
+def mfcc_tc_ops_and_bytes(kid: str, B: int, T: int, mel_weights: int, tail_weights: int):
+    """K1-K4 on [B, T] PCM: (FP32 operations, bf16 operations, bytes).  The
+    DFT in bf16x3 is three bf16 products of the [400 x 802] block DFT per
+    block row (K4: of the [800 x 802] frame DFT per window); the mel stage
+    is three bf16 products over the filterbank's nonzero weights for K2 and
+    K1 (K1's tail weights, ``tail_weights`` of them, twice), one FP32
+    product for K3 and K4; the combine, power, log and DCT are FP32.  Each
+    input (the PCM, the bf16 hi and lo basis) read once, the output written
+    once."""
     nb = T // 400
     rows, wins = B * nb, B * max(nb - 1, 0)
-    ops = (2 * rows * 400 * 802 + wins * 401 * 7 + 2 * wins * mel_weights
-           + wins * 26 + 2 * wins * 26 * 20)
-    nbytes = 4 * (B * T + wins * 20 + 400 * 802 + mel_weights + 3 * 26 + 26 * 20)
-    return ops, nbytes
-
-
-def mfcc_tc_ops_and_bytes(B: int, T: int, mel_weights: int, mel_tc: bool):
-    """K2 (``mel_tc``) and K3 on [B, T] PCM: (FP32 operations, bf16
-    operations, bytes).  The DFT in bf16x3 is three bf16 products of the
-    [400 x 802] block DFT per block row; K2's mel stage is three bf16
-    products over the filterbank's nonzero weights, K3's one FP32 product;
-    the combine, power, log and DCT are FP32."""
-    nb = T // 400
-    rows, wins = B * nb, B * max(nb - 1, 0)
-    bf16 = 3 * 2 * rows * 400 * 802
-    f32 = wins * 401 * 7 + wins * 26 + 2 * wins * 26 * 20
-    mel = 2 * wins * mel_weights
-    if mel_tc:
+    taps = 800 if kid == "K4" else 400
+    bf16 = 3 * 2 * (wins if kid == "K4" else rows) * taps * 802
+    f32 = wins * 401 * (3 if kid == "K4" else 7) + wins * 26 + 2 * wins * 26 * 20
+    mel = 2 * wins * (mel_weights + (tail_weights if kid == "K1" else 0))
+    if kid in ("K1", "K2"):
         bf16 += 3 * mel
     else:
         f32 += mel
-    nbytes = 4 * (B * T + wins * 20 + mel_weights + 3 * 26 + 26 * 20) + 2 * 2 * 400 * 802
+    nbytes = 4 * (B * T + wins * 20 + mel_weights + 3 * 26 + 26 * 20) + 2 * 2 * taps * 802
     return f32, bf16, nbytes
-
-
-def k4_formulation_ops_and_bytes(B: int, T: int, mel_weights: int):
-    """What K4's frame-major formulation does on [B, T] PCM: the [800 x 802]
-    full-window DFT per window, the power, the sparse mel product, the log
-    and the DCT.  Twice the function's work (K4 computes K1's function, so
-    its bound is K1's); printed beside the bound, not used as one."""
-    nb = T // 400
-    wins = B * max(nb - 1, 0)
-    ops = (2 * wins * 800 * 802 + wins * 401 * 3 + 2 * wins * mel_weights
-           + wins * 26 + 2 * wins * 26 * 20)
-    nbytes = 4 * (B * T + wins * 20 + 800 * 802 + mel_weights + 3 * 26 + 26 * 20)
-    return ops, nbytes
 
 
 def k7_ops_and_bytes(R: int, dims):
@@ -421,7 +400,7 @@ def main() -> int:
     shapes = [(1, 800), (1, 2000), (2, 4000), (1, 208000), (3, 208000),
               (129, 1600), (513, 800), (2, 399)]
     plain_base = {
-        "K1": mfcc.mfcc_base,
+        "K1": lambda x: mfcc_kernel.mfcc_base_bf16x3_plain(x, True, tail_fold=True),
         "K2": lambda x: mfcc_kernel.mfcc_base_bf16x3_plain(x, True),
         "K3": lambda x: mfcc_kernel.mfcc_base_bf16x3_plain(x, False),
         "K4": mfcc_kernel.mfcc_base_frames_plain,
@@ -442,29 +421,27 @@ def main() -> int:
             if got.shape != want.shape:
                 fail(f"{kid} shape {tuple(got.shape)} != plain {tuple(want.shape)} at {(B, T)}")
             errs[f"{B}x{T}"] = float((got - want).abs().max()) if got.numel() else 0.0
-        if kid in ("K2", "K3"):
-            # The edges of their tile, as the card tests hold them (offset 1:
-            # a base one float past a 16-byte boundary).
-            for B, T, off in TC_EDGES:
-                flat = torch.randn((B * T + off,), generator=check_gen, device=dev) * 0.1
-                pcm = flat[off:].view(B, T)
-                got = wrapper(pcm)
-                want = plain_base[kid](pcm)
-                torch.cuda.synchronize()
-                if got.shape != want.shape or not torch.isfinite(got).all():
-                    fail(f"{kid} at {(B, T, off)}: {tuple(got.shape)} vs {tuple(want.shape)}")
-                errs[f"{B}x{T}+{off}"] = float((got - want).abs().max())
+        # The edges of their tile, as the card tests hold them (offset 1: a
+        # base one float past a 16-byte boundary).
+        for B, T, off in TC_EDGES:
+            flat = torch.randn((B * T + off,), generator=check_gen, device=dev) * 0.1
+            pcm = flat[off:].view(B, T)
+            got = wrapper(pcm)
+            want = plain_base[kid](pcm)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                fail(f"{kid} at {(B, T, off)}: {tuple(got.shape)} vs {tuple(want.shape)}")
+            errs[f"{B}x{T}+{off}"] = float((got - want).abs().max())
         got = wrapper(main_pcm)
         want = plain_base[kid](main_pcm)
         torch.cuda.synchronize()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"{kid} at the main-path shape: {tuple(got.shape)} vs {tuple(want.shape)}")
-        if kid in ("K2", "K3"):
-            again = wrapper(main_pcm)
-            torch.cuda.synchronize()
-            if not torch.equal(got, again):
-                fail(f"{kid}: two launches at the main-path shape differ")
-            del again
+        again = wrapper(main_pcm)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{kid}: two launches at the main-path shape differ")
+        del again
         errs[f"{main_pcm.shape[0]}x{main_pcm.shape[1]} (main path)"] = float(
             (got - want).abs().max())
         del got, want
@@ -1002,81 +979,76 @@ def main() -> int:
     mark("timing")
     B, T = main_pcm.shape
     rows = B * (T // 400)
-    mel_w = len(mfcc_kernel.kernel_constants()["fbw"])
-    ops, nbytes = k1_ops_and_bytes(B, T, mel_w)
-    k1_bound_ms, k1_bound_by = bound(ops, nbytes)
-    tf32_bound_ms = max(ops / PEAK_TF32, nbytes / PEAK_BYTES) * 1e3
-    dft = mfcc._constants(dev)[0]
+    consts = mfcc_kernel.kernel_constants()
+    mel_w = len(consts["fbw"])
+    tail_w = int(sum(max(0, hi - max(lo, 384))
+                     for lo, hi in zip(consts["mel_lo"], consts["mel_hi"])))
+    # The yardsticks, made before the timing: each kernel's DFT as one
+    # torch.matmul, in FP32 and in bf16x3 (one bf16 product of the split
+    # planes concatenated along k, [x_hi | x_hi | x_lo] @ [d_hi; d_lo; d_hi],
+    # over the kernels' 896 basis columns): the block DFT stage, which every
+    # one of K1-K4 is held to, and K4's own frame product.
     blocks = main_pcm.view(rows, 400)
-    k1_ms = time_ms(lambda: mfcc_kernel.mfcc_base_v4(main_pcm), iters=20)
-    k1_plain_ms = time_ms(lambda: mfcc.mfcc_base(main_pcm), iters=5)
-    k1_lib_ms = time_ms(lambda: torch.matmul(blocks, dft), iters=20)
-    k1_ms_2 = time_ms(lambda: mfcc_kernel.mfcc_base_v4(main_pcm), iters=20)
-    print(f"[time] K1 mfcc_base_v4 [{B}, {T}] ({rows} block rows): {k1_ms:.3f} ms, "
-          f"again {k1_ms_2:.3f} ms; plain {k1_plain_ms:.3f} ms; torch.matmul DFT stage "
-          f"{k1_lib_ms:.3f} ms; bound {k1_bound_ms:.3f} ms by {k1_bound_by} "
-          f"({ops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; TF32 bound "
-          f"{tf32_bound_ms:.3f} ms) | {card}")
-
-    timed = {}
+    fp32_ms = {"block": time_ms(lambda: torch.matmul(blocks, mfcc._constants(dev)[0]), iters=20)}
     frames = main_pcm.unfold(1, 800, 400).reshape(-1, 800).contiguous()
     frame_dft = mfcc_kernel._frame_constants(dev)
-    k4_lib_ms = time_ms(lambda: torch.matmul(frames, frame_dft), iters=10)
+    fp32_ms["frame"] = time_ms(lambda: torch.matmul(frames, frame_dft), iters=10)
+    bf16x3_ms = {}
+    for form, x, basis in (("block", blocks, consts["basis"]),
+                           ("frame", frames, consts["frame_basis"])):
+        xh, xl = mfcc_kernel.bf16_split(x)
+        dh, dl = mfcc_kernel.bf16_split(torch.from_numpy(basis).to(dev))
+        x3, d3 = torch.cat([xh, xh, xl], 1), torch.cat([dh, dl, dh], 0)
+        del xh, xl
+        bf16x3_ms[form] = time_ms(lambda: torch.matmul(x3, d3), iters=20)
+        print(f"[time] bf16x3 {form} DFT, one bf16 torch.matmul [{x3.shape[0]}, "
+              f"{x3.shape[1]}] x [{d3.shape[0]}, {d3.shape[1]}]: {bf16x3_ms[form]:.3f} ms; "
+              f"FP32 [{x.shape[0]}, {x.shape[1]}] x [{x.shape[1]}, 802]: "
+              f"{fp32_ms[form]:.3f} ms | {card}")
+        del x3, d3
     del frames
-    k4_form_ops, k4_form_bytes = k4_formulation_ops_and_bytes(B, T, mel_w)
-    k4_form_ms, _ = bound(k4_form_ops, k4_form_bytes)
-    # K2's and K3's yardstick: their DFT stage in bf16x3 as one bf16
-    # torch.matmul of the pre-split planes concatenated along k,
-    # [x_hi | x_hi | x_lo] @ [d_hi; d_lo; d_hi] over the kernels' 896 basis
-    # columns, made before the timing.
-    xh, xl = mfcc_kernel.bf16_split(blocks)
-    dh, dl = mfcc_kernel.bf16_split(
-        torch.from_numpy(mfcc_kernel.kernel_constants()["basis"]).to(dev))
-    x3, d3 = torch.cat([xh, xh, xl], 1), torch.cat([dh, dl, dh], 0)
-    del xh, xl
-    bf16x3_lib_ms = time_ms(lambda: torch.matmul(x3, d3), iters=20)
-    print(f"[time] bf16x3 DFT stage, one bf16 torch.matmul [{rows}, {x3.shape[1]}] x "
-          f"[{d3.shape[0]}, {d3.shape[1]}]: {bf16x3_lib_ms:.3f} ms | {card}")
-    del x3, d3
-    # The bench twin's PCM batch, for K2 and K3 at its shape.
+    # The bench twin's PCM batch, for each kernel at its shape.
     twin_pcm = bench._clip_batch(32, 10.0, dev)[0]
-    for kid in ("K2", "K3", "K4"):
-        if kid == "K4":  # K1's function, so K1's work bounds it
-            f32_ops, kb = ops, nbytes
-            bf_ops, lib_ms = 0.0, k4_lib_ms
-        else:
-            f32_ops, bf_ops, kb = mfcc_tc_ops_and_bytes(B, T, mel_w, kid == "K2")
-            lib_ms = bf16x3_lib_ms
+    # K4's output needs only K3's work: the frame basis' second half is
+    # (-1)^k times its first, so the block-parity DFT gives the same bf16
+    # products at half the operations.  K4 is held to that bound and to the
+    # block DFT stage; its own 800-tap formulation's bound and frame product
+    # stand beside them.
+    timed = {}
+    for kid in ("K1", "K2", "K3", "K4"):
+        need = "K3" if kid == "K4" else kid
+        f32_ops, bf_ops, kb = mfcc_tc_ops_and_bytes(need, B, T, mel_w, tail_w)
         bound_ms, bound_by = bound(f32_ops, kb, bf_ops)
         wrapper = mfcc_kernel.WRAPPERS[kid]
         ms_1 = time_ms(lambda: wrapper(main_pcm), iters=10)
         plain_ms = time_ms(lambda: plain_base[kid](main_pcm), iters=3)
         ms_2 = time_ms(lambda: wrapper(main_pcm), iters=10)
-        timed[kid] = {"ms": [ms_1, ms_2], "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by}
-        if kid == "K4":
-            print(f"[time] K4 {wrapper.__name__} [{B}, {T}]: {ms_1:.3f} ms, again "
-                  f"{ms_2:.3f} ms; plain {plain_ms:.3f} ms; torch.matmul frame product "
-                  f"{lib_ms:.3f} ms; bound {bound_ms:.3f} ms by {bound_by} "
-                  f"({f32_ops / 1e9:.2f} GFLOP FP32, {kb / 1e6:.1f} MB); its frame-major "
-                  f"formulation's own work {k4_form_ops / 1e9:.2f} GFLOP, "
-                  f"{k4_form_ms:.3f} ms at the FP32 peak | {card}")
-            continue
         tb, tt = twin_pcm.shape
-        t_ops = mfcc_tc_ops_and_bytes(tb, tt, mel_w, kid == "K2")
+        t_ops = mfcc_tc_ops_and_bytes(need, tb, tt, mel_w, tail_w)
         twin_bound_ms, _ = bound(t_ops[0], t_ops[2], t_ops[1])
         twin_1 = time_ms(lambda: wrapper(twin_pcm), iters=20)
         twin_2 = time_ms(lambda: wrapper(twin_pcm), iters=20)
-        timed[kid].update({"fp32_library_ms": k1_lib_ms, "twin_ms": [twin_1, twin_2],
-                           "twin_bound_ms": twin_bound_ms})
+        timed[kid] = {"ms": [ms_1, ms_2], "plain_ms": plain_ms, "library_ms": bf16x3_ms["block"],
+                      "fp32_library_ms": fp32_ms["block"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "twin_ms": [twin_1, twin_2],
+                      "twin_bound_ms": twin_bound_ms}
         print(f"[time] {kid} {wrapper.__name__} [{B}, {T}]: {ms_1:.3f} ms, again "
-              f"{ms_2:.3f} ms; plain {plain_ms:.3f} ms; bf16x3 DFT stage (one bf16 "
-              f"torch.matmul) {lib_ms:.3f} ms, FP32 DFT stage {k1_lib_ms:.3f} ms; bound "
-              f"{bound_ms:.3f} ms by {bound_by} ({f32_ops / 1e9:.2f} GFLOP FP32 + "
+              f"{ms_2:.3f} ms; plain {plain_ms:.3f} ms; bf16x3 block DFT (one bf16 "
+              f"torch.matmul) {bf16x3_ms['block']:.3f} ms, FP32 {fp32_ms['block']:.3f} ms; "
+              f"bound {bound_ms:.3f} ms by {bound_by} ({f32_ops / 1e9:.2f} GFLOP FP32 + "
               f"{bf_ops / 1e9:.2f} GFLOP bf16, {kb / 1e6:.1f} MB); at the bench twin's "
               f"[{tb}, {tt}]: {twin_1:.4f} ms, again {twin_2:.4f} ms, bound "
               f"{twin_bound_ms:.4f} ms | {card}")
-    timed["K4"]["formulation_ms"] = k4_form_ms
+        if kid == "K4":
+            f_ops = mfcc_tc_ops_and_bytes("K4", B, T, mel_w, tail_w)
+            timed[kid].update({
+                "formulation_bound_ms": bound(f_ops[0], f_ops[2], f_ops[1])[0],
+                "formulation_library_ms": bf16x3_ms["frame"],
+                "formulation_fp32_library_ms": fp32_ms["frame"]})
+            print(f"[time] K4's own 800-tap formulation: bound "
+                  f"{timed[kid]['formulation_bound_ms']:.3f} ms ({f_ops[1] / 1e9:.2f} GFLOP "
+                  f"bf16); bf16x3 frame product (one bf16 torch.matmul) "
+                  f"{bf16x3_ms['frame']:.3f} ms, FP32 {fp32_ms['frame']:.3f} ms | {card}")
 
     ns = net.num_speakers
     k7_ops, k7_bytes = k7_ops_and_bytes(k7_x.shape[0], (*dims[:3], net.capacity))
@@ -1317,8 +1289,7 @@ def main() -> int:
         "identify_launches": identify_launches, "identify_correct": correct,
         "identify_unknown": unknown, "vote_s": vote_s,
         "vote_windows_per_s": n_windows / vote_s, "vote_launches": vote_launches,
-        "gpu_vs_cpu": checks, "k1_ms": [k1_ms, k1_ms_2], "k1_plain_ms": k1_plain_ms,
-        "k1_matmul_dft_ms": k1_lib_ms, "k1_tf32_bound_ms": tf32_bound_ms,
+        "gpu_vs_cpu": checks,
         "k5_ms": [k5_ms, k5_ms_2], "k5_plain_ms": k5_plain_ms,
         "k5_step_ms": [k5_step_ms, k5_step_ms_2], "k5_step_plain_ms": k5_step_plain_ms,
         "k5_bounds_ms": {"fp32": k5_fp32_ms, "3xtf32": k5_bound_ms,
@@ -1328,12 +1299,6 @@ def main() -> int:
         "script_s_by_phase": by_phase,
     })
     kernels = {"kernels": [
-        {"name": "mfcc_base_v4", "route": "cuda",
-         "source": "streamz_tpu_torch/csrc/mfcc_base.cu",
-         "replaces": "streamz_tpu/dsp/pallas_mfcc.py:612",
-         "launches": launches["K1"], "max_abs_err": max(mfcc_errs["K1"].values()),
-         "ms": min(k1_ms, k1_ms_2), "plain_ms": k1_plain_ms, "bound_ms": k1_bound_ms,
-         "bound_by": k1_bound_by, "library_ms": k1_lib_ms},
         {"name": "corpus_grads_k5", "route": "cuda",
          "source": "streamz_tpu_torch/csrc/corpus_grads.cu",
          "replaces": "streamz_tpu/nn/pallas_train.py:67",
@@ -1358,6 +1323,8 @@ def main() -> int:
                         "bound_ms": v["bound_ms"]} for k, v in k6_timed.items()}},
     ]}
     for kid, name, src, replaces, err in (
+            ("K1", "mfcc_base_v4", "mfcc_base.cu", "dsp/pallas_mfcc.py:612",
+             max(mfcc_errs["K1"].values())),
             ("K2", "mfcc_base_v3", "mfcc_v3.cu", "dsp/pallas_mfcc.py:383",
              max(mfcc_errs["K2"].values())),
             ("K3", "mfcc_base_v2", "mfcc_v2.cu", "dsp/pallas_mfcc.py:218",
@@ -1373,12 +1340,16 @@ def main() -> int:
             "max_abs_err": err, "ms": min(t["ms"]), "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
-        if kid in ("K2", "K3"):
+        if kid != "K7":
             kernels["kernels"][-1].update({
-                "library": "bf16x3 DFT stage, one bf16 torch.matmul of the split planes",
+                "library": "bf16x3 block DFT stage, one bf16 torch.matmul of the split planes",
                 "fp32_library_ms": t["fp32_library_ms"], "twin_ms": min(t["twin_ms"]),
                 "twin_bound_ms": t["twin_bound_ms"]})
-    for entry, kid in zip(kernels["kernels"], ("K1", "K5", "K6", "K2", "K3", "K4", "K7")):
+            if kid == "K4":
+                kernels["kernels"][-1].update({
+                    k: t[k] for k in ("formulation_bound_ms", "formulation_library_ms",
+                                      "formulation_fp32_library_ms")})
+    for entry, kid in zip(kernels["kernels"], ("K5", "K6", "K1", "K2", "K3", "K4", "K7")):
         entry["path"] = own_path[kid]
         entry["launches_by_path"] = {p: c[kid] for p, c in by_path.items() if c[kid]}
     report.update(kernels)

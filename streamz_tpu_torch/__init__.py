@@ -8,7 +8,9 @@ under ``csrc/``, built with ``nvcc`` at first use.
 
 Ported so far: one-shot identification, ``python -m streamz_tpu_torch
 --identify <clips>`` — host decode/resample, the MFCC frontend through the
-CUDA kernel K1 (``csrc/mfcc_base.cu``), Δ/ΔΔ + z-norm, mean-pooled ReLU-h2
+measured winner of the CUDA kernels K1 (``csrc/mfcc_base.cu``) and K2
+(``csrc/mfcc_v3.cu``), both bf16x3 on the tensor cores, Δ/ΔΔ + z-norm,
+mean-pooled ReLU-h2
 embeddings of the 60→512→256 MLP, the cosine gate — and the gated vote
 pipeline (:func:`streamz_tpu_torch.infer.identify.identify_speaker_list_batch`).
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.

@@ -1,12 +1,19 @@
-// The bf16x3 tensor-core MFCC base tile, shared by K3 (mfcc_v2.cu, mel in
-// f32) and K2 (mfcc_v3.cu, mel in bf16x3 too), written for Hopper (sm_90a).
+// The bf16x3 tensor-core MFCC base tile of every MFCC kernel, written for
+// Hopper (sm_90a), in four forms (Form below): K3 (mfcc_v2.cu, mel in f32),
+// K2 (mfcc_v3.cu, mel in bf16x3 too), K1 (mfcc_base.cu, K2 with the tail
+// bins' squares split) and K4 (mfcc_frames.cu, the frame-major form).
 //
-// Both compute the block-parity form: each 400-sample block row r of the
-// flattened [B * nb, 400] view is projected once onto the one-sided cos and
-// -sin basis, and window t = block t || block t+1 is
+// K1, K2 and K3 compute the block-parity form: each 400-sample block row r
+// of the flattened [B * nb, 400] view is projected once onto the one-sided
+// cos and -sin basis, and window t = block t || block t+1 is
 //
 //   re = proj_c[t] + (-1)^k proj_c[t+1]   (im likewise), power = re^2 + im^2,
 //   mel = power @ fb^T, base = DCT-II_20( log(max(mel, 1e-12)) ).
+//
+// K4 computes each window as one 800-tap product, accumulated once over the
+// taps of block t (basis rows 0..399) and of block t+1 (rows 400..799):
+// re = sum_n frame[n] cos(2 pi k n / 800), im likewise with -sin, and the
+// power, mel, log and DCT as above.
 //
 // The DFT runs on the tensor cores in bf16x3, which is what the TPU kernels
 // compute: x = x_hi + x_lo and d = d_hi + d_lo in bf16 (lo = bf16(a - hi),
@@ -14,47 +21,57 @@
 // the three products accumulated in f32 into one register accumulator.  Two
 // products (bf16x2) missed the 1e-3 feature gate on the TPU.
 //
-// What bounds it: 3 x 2 x 400 x 896 bf16 operations per block row against
-// 1.6 KB of PCM, far above the card's bf16 ridge, so the tensor cores; and
-// the basis, 1.43 MB of hi/lo planes that every tile of rows reads through
-// L2.  The design:
+// What bounds it: 3 x 2 x 400 x 896 bf16 operations per block row (twice
+// that per window for K4) against 1.6 KB of PCM, far above the card's bf16
+// ridge, so the tensor cores; and the basis, 1.43 MB of hi/lo planes (2.87
+// MB for K4) that every tile of rows reads through L2.  The design:
 //
 // - A tile is kRows = 64 block rows (63 windows; the last row is the halo),
 //   one wgmma M.  Each CTA is persistent and walks the tiles of its cluster
 //   with three roles.  A splitter warpgroup writes a tile's PCM once as
 //   bf16 hi/lo planes into shared memory (read in place, no pad copy,
 //   16-byte loads when every row is 16-byte aligned, else 4-byte ones), in
-//   the swizzled layout that wgmma reads, each stage's k columns as soon as
-//   the previous tile's last strip has read them; then it writes the
-//   previous tile's windows (below).  The producer warp has each next
-//   tile's PCM prefetched into L2 and keeps the ring below filled.  The
-//   consumer warpgroup runs the products, the combine and the mel stage.
+//   the layout that wgmma reads, each stage's k columns as soon as the
+//   previous tile's last strip has read them; then it writes the previous
+//   tile's windows (below).  The producer warp has each next tile's PCM
+//   prefetched into L2 and keeps the ring below filled.  The consumer
+//   warpgroup runs the products, the combine and the mel stage.
 // - The basis streams through a ring of kStages shared-memory stages of
 //   kStageSteps k16 steps of one strip (7 strips of 64 bins: cos | -sin, 128
 //   columns), 8 KB of hi and lo planes a step that the host lays out once,
 //   in the order and the swizzled layout that wgmma reads
-//   (kernel_constants()'s "basis_tc"), so one bulk async copy
-//   (cp.async.bulk, mbarrier complete_tx) fills a stage.  A cluster of
-//   kCluster CTAs on neighbouring row tiles shares each stage: every CTA
-//   copies its share of the stage and multicasts it to all of them, so one
-//   L2 read serves kCluster tiles.
+//   (kernel_constants()'s "basis_tc", K4's "frame_basis_tc"), so one bulk
+//   async copy (cp.async.bulk, mbarrier complete_tx) fills a stage.  A
+//   cluster of kCluster CTAs on neighbouring row tiles shares each stage:
+//   every CTA copies its share of the stage and multicasts it to all of
+//   them, so one L2 read serves kCluster tiles (clusters of four were slower
+//   for K2 and K4).
 // - Per step the consumer warpgroup issues three wgmma m64n128k16 (hi hi,
 //   hi lo, lo hi) into one accumulator of 64 f32 registers a thread, and
 //   keeps one stage's products in flight while it issues the next stage's.
+//   K4's A reuses each tile row for the two windows that hold it: steps
+//   0..24 read the planes at rows 0..63, steps 25..49 the same planes one
+//   row on (rows 1..64, row 64 zero), through a descriptor that starts 16
+//   bytes later in K4's unswizzled layout, where the rows of an 8-k column
+//   lie 16 bytes apart.
 // - The combine and the power stay in registers: a thread holds rows g and
 //   g + 8 of its warp's 16 (g = lane / 4); row t + 1 is four lanes on
 //   (__shfl_sync), and each warp's last row reads the next warp's first row
-//   through shared memory.
+//   through shared memory.  K4 has no combine: power = re^2 + im^2.
 // - The mel stage, per strip:
-//     MEL_TC = true  (K2): bf16x3 on the tensor cores, wgmma m64n32k16 with
-//       the power's hi and lo planes as A straight from the registers (the
-//       accumulator layout is the A fragment's), and the strip's [64 bins,
-//       32] mel planes as B, streamed through the ring as one more stage;
-//       the [64, 32] mel accumulator stays in registers across the strips.
-//     MEL_TC = false (K3): f32, sparse over each filter's bin range on the
-//       CUDA cores, from the power in shared memory (the weights there too);
-//       each (window, mel) pair has one owner thread for the whole tile, so
-//       no atomics.
+//     bf16x3 on the tensor cores (K2, K1): wgmma m64n32k16 with the power's
+//       hi and lo planes as A straight from the registers (the accumulator
+//       layout is the A fragment's), and the strip's [64 bins, 32] mel
+//       planes as B, streamed through the ring as one more stage; the
+//       [64, 32] mel accumulator stays in registers across the strips.  K1
+//       takes the TPU kernel's tail: in strip 6 (bins 384..447) A is
+//       [re^2 planes | im^2 planes], K = 128, against the strip's mel rows
+//       stacked twice, which are the same four k16 blocks of the stage read
+//       twice; the squares are split into bf16 before they are summed.
+//     f32 (K3, K4): sparse over each filter's bin range on the CUDA cores,
+//       from the power in shared memory (the weights there too); each
+//       (window, mel) pair has one owner thread for the whole tile, so no
+//       atomics.
 // - After the last strip the consumers write log(max(., 1e-12)) of the mel
 //   energies to shared memory; the splitters run the [26 -> 20] DCT in f32
 //   and write only the valid windows (the window that straddles two clips
@@ -73,13 +90,13 @@ namespace streamz_tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlock = 400;             // samples per block = the DFT's K (25 x 16)
+constexpr int kBlock = 400;             // samples per block = the block DFT's K (25 x 16)
 constexpr int kRows = 64;               // block rows per tile: one wgmma M
 constexpr int kWins = kRows - 1;        // windows per tile; the last row is the halo
 constexpr int kStrips = 7;              // 7 * 64 = 448 >= 401 bins
 constexpr int kStripBins = 64;
 constexpr int kStripCols = 2 * kStripBins;        // cos 64 | sin 64
-constexpr int kSteps = kBlock / 16;     // k16 steps of one strip
+constexpr int kSteps = kBlock / 16;     // k16 steps of one block row
 constexpr int kMelCols = 32;            // 26 mels padded to a wgmma N of 32
 constexpr int kMels = 26;
 constexpr int kCoefs = 20;
@@ -87,44 +104,71 @@ constexpr int kStepElems = 2 * kStripCols * 16;  // one k16 step's hi and lo pla
 constexpr int kStageSteps = 5;          // k16 steps a ring stage holds: 40 KB
 constexpr int kStageElems = kStageSteps * kStepElems;
 constexpr int kStages = 2;              // ring stages
-constexpr int kStripItems = kSteps / kStageSteps;  // stages per strip
+constexpr int kSplitItems = kSteps / kStageSteps;  // stage-sized column groups of the planes
 constexpr int kCluster = 2;             // CTAs sharing each basis stage (multicast)
 constexpr int kConsumers = 128;         // one warpgroup: products, combine, mel
 constexpr int kSplitters = 128;         // one warpgroup: PCM planes, DCT and stores
 constexpr int kThreads = kConsumers + kSplitters + 32;  // and one producer warp
 constexpr int kKCores = kBlock / 8;     // 50 core matrices of 8 k along a PCM row
-constexpr int kPwld = kStripBins + 1;   // f32 row stride of the power (K3)
+constexpr int kPwld = kStripBins + 1;   // f32 row stride of the power (K3, K4)
 constexpr int kMlld = kMelCols + 1;     // f32 row stride of the log mel energies
-constexpr int kMaxMelWeights = 1024;    // K3's sparse mel weights held in shared memory
+constexpr int kMaxMelWeights = 1024;    // the sparse mel weights held in shared memory
 
 static_assert(kBlock % 16 == 0 && kSteps % kStageSteps == 0, "whole k16 steps, whole stages");
 static_assert(2 * kMelCols * kStripBins == kStepElems, "a strip's mel planes fill one step");
-static_assert(kConsumers == 2 * kRows && kMels % 2 == 0, "K3: a row and every other mel a thread");
+static_assert(kConsumers == 2 * kRows && kMels % 2 == 0, "sparse mel: a row and every other mel a thread");
 static_assert(kStepElems % (8 * kCluster) == 0, "a stage splits into 16-byte parts, one a CTA");
 
-// Shared memory, 220 KB.  The PCM planes and each ring stage hold wgmma
-// operands as K-major blocks of 16 k in the 32-byte swizzle: row n of a
-// block is 32 bytes at 32 n, its two 16-byte halves swapped when n / 4 is
-// odd, and each block starts on 256 bytes.  PCM plane: k16 step j's 64 rows at j * 2 KB.
-// Ring stage: step j of the stage at j * 8 KB, its plane p (hi, lo) at
-// + p * 4 KB, the strip's 128 columns; or mel (K2): k16 step i of the
-// strip's 64 bins at i * 1 KB + p * 4 KB, 32 mels each.
+// The kernels of the tile.
+enum class Form {
+  kV2,      // K3: block parity, mel sparse in f32
+  kV3,      // K2: block parity, mel in bf16x3 on the tensor cores
+  kV4,      // K1: K2 with the tail bins' squares split before the mel
+  kFrames,  // K4: 800-tap frames, no combine, mel sparse in f32
+};
+
+template <Form F>
+struct Traits {
+  static constexpr bool kMelTc = F == Form::kV3 || F == Form::kV4;
+  static constexpr bool kTailFold = F == Form::kV4;
+  static constexpr bool kFrames = F == Form::kFrames;
+  static constexpr int kDftSteps = kFrames ? 2 * kSteps : kSteps;  // k16 steps a strip
+  static constexpr int kDftItems = kDftSteps / kStageSteps;        // DFT stages a strip
+  static constexpr int kItems = kDftItems + (kMelTc ? 1 : 0);      // ring stages a strip
+  // The DFT stage after which the last strip has read a column group for
+  // the last time is group + kAReuse (K4 reads each group twice).
+  static constexpr int kAReuse = kDftItems - kSplitItems;
+  static constexpr int kARows = kFrames ? kRows + 1 : kRows;  // plane rows (K4: a zero row 64)
+};
+
+// Shared memory, about 220 KB.  The PCM planes hold wgmma's A operand as
+// K-major core matrices of 8 rows x 8 k (16 bytes a row).  K1-K3: blocks of
+// 16 k in the 32-byte swizzle: row n of a block is 32 bytes at 32 n, its
+// two 16-byte halves swapped when n / 4 is odd, and each block starts on 256
+// bytes; k16 step j's 64 rows at j * 2 KB.  K4: no swizzle; core column c
+// (k = 8 c .. 8 c + 7) holds its 65 rows at 16 bytes each from c * 1040 B.
+// Each ring stage holds B in the 32-byte swizzle: step j of the stage at
+// j * 8 KB, its plane p (hi, lo) at + p * 4 KB, the strip's 128 columns; or
+// mel (K2, K1): k16 step i of the strip's 64 bins at i * 1 KB + p * 4 KB, 32
+// mels each.
+template <Form F>
 struct __align__(256) Smem {
-  bf16 xhi[kKCores * kRows * 8];
-  bf16 xlo[kKCores * kRows * 8];
-  bf16 ring[kStages][kStageElems];
+  static constexpr int kPlane = kKCores * Traits<F>::kARows * 8;  // bf16 a plane
+  bf16 xhi[kPlane];
+  bf16 xlo[kPlane];
+  alignas(256) bf16 ring[kStages][kStageElems];
   float xrow[2][4][kStripCols];  // each warp's first projection row, by strip parity
-  float pw[kRows][kPwld];        // one strip's power (K3)
+  float pw[kRows][kPwld];        // one strip's power (K3, K4)
   float ml[kRows][kMlld];        // the tile's log mel energies
   float dct[kCoefs][kMels];
   unsigned long long full[kStages];   // a stage's bytes have landed
   unsigned long long empty[kStages];  // every CTA's consumers are done with it
   unsigned long long a_full;          // the splitters have written the tile's planes
-  unsigned long long a_free[kStripItems];  // the last strip's products have read a stage's k
+  unsigned long long a_free[kSplitItems];  // the last strip's products have read a column group
   unsigned long long ml_full;         // the consumers have written the tile's log mel
   unsigned long long ml_free;         // the splitters have written its windows
   int mlo[kMels], mhi[kMels], moff[kMels];
-  float fbw[kMaxMelWeights];  // the sparse mel weights (K3)
+  float fbw[kMaxMelWeights];  // the sparse mel weights (K3, K4)
 };
 
 struct Params {
@@ -132,9 +176,9 @@ struct Params {
   long long rows, T, nb;  // rows = B * nb block rows
   int aligned16;          // every row starts 16-byte aligned
   int tiles;
-  const bf16* basis;      // [7 strips][25 steps][kStepElems]: "basis_tc"
-  const bf16* melw;       // [7 strips][kStepElems]: "mel_tc" (K2)
-  const float* fbw;       // the sparse f32 mel weights (K3)
+  const bf16* basis;      // [7 strips][kDftSteps][kStepElems]: "basis_tc" or "frame_basis_tc"
+  const bf16* melw;       // [7 strips][kStepElems]: "mel_tc" (K2, K1)
+  const float* fbw;       // the sparse f32 mel weights (K3, K4)
   const int* mel_lo;
   const int* mel_hi;
   const int* mel_off;
@@ -152,6 +196,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ uint64_t make_desc(const void* p) {
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
+// The same for a block without swizzle (layout type 0): 8-row core
+// matrices of 16-byte rows, contiguous, 128 bytes apart along M (the stride
+// byte offset); the two 8-k halves `lbo` bytes apart (the leading byte
+// offset).  Any 16-byte aligned start, so a start one row on reads rows 1..
+__device__ __forceinline__ uint64_t make_desc_plain(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(128 >> 4) << 32);
 }
 
 __device__ __forceinline__ void mbar_init(unsigned long long* bar, int count) {
@@ -356,9 +409,11 @@ struct SplitRow {
     }
   }
 
-  // Split v into the hi and lo planes: k16 step k8 / 2, row r, 16-byte
-  // half (k8 % 2) ^ (r / 4 % 2).
-  __device__ __forceinline__ void store(int it, const float (&v)[kStageSteps][8], Smem& s) const {
+  // Split v into the hi and lo planes: K1-K3 at k16 step k8 / 2, row r,
+  // 16-byte half (k8 % 2) ^ (r / 4 % 2); K4 at core column k8, row r.
+  template <Form F>
+  __device__ __forceinline__ void store(int it, const float (&v)[kStageSteps][8],
+                                        Smem<F>& s) const {
     uint4* hi = reinterpret_cast<uint4*>(s.xhi);
     uint4* lo = reinterpret_cast<uint4*>(s.xlo);
 #pragma unroll
@@ -367,7 +422,9 @@ struct SplitRow {
 #pragma unroll
       for (int i = 0; i < 4; ++i) h[i] = pack_bf16(v[j][2 * i], v[j][2 * i + 1], &l[i]);
       const int k8 = k0 + 2 * (it * kStageSteps + j);
-      const int at = (k8 >> 1) * 2 * kRows + 2 * r + ((k8 & 1) ^ ((r >> 2) & 1));
+      const int at = Traits<F>::kFrames
+                         ? k8 * Traits<F>::kARows + r
+                         : (k8 >> 1) * 2 * kRows + 2 * r + ((k8 & 1) ^ ((r >> 2) & 1));
       hi[at] = make_uint4(h[0], h[1], h[2], h[3]);
       lo[at] = make_uint4(l[0], l[1], l[2], l[3]);
     }
@@ -378,8 +435,9 @@ struct SplitRow {
 // valid windows only: a window is valid when its block and the next are in
 // the same clip (the window that straddles two clips is dropped) and inside
 // the batch.
+template <Form F>
 __device__ __forceinline__ void write_windows(const Params& p, long long r0, int tid,
-                                              int nthreads, const Smem& s) {
+                                              int nthreads, const Smem<F>& s) {
   const long long nwin = p.nb - 1;
   const long long clip0 = r0 / p.nb, t0 = r0 - clip0 * p.nb;
   for (int o = tid; o < kWins * kCoefs; o += nthreads) {
@@ -401,15 +459,84 @@ __device__ __forceinline__ void write_windows(const Params& p, long long r0, int
 
 // Hand a ring stage back: every CTA of the cluster may refill it once all
 // their consumer warps are done with it.  Lane c of each warp signals CTA c.
-__device__ __forceinline__ void release(Smem& s, int stage, int lane) {
+template <Form F>
+__device__ __forceinline__ void release(Smem<F>& s, int stage, int lane) {
   if (lane < kCluster) mbar_arrive_cluster(&s.empty[stage], lane);
+}
+
+// The parity combine and the power of one strip's [64, 128] projection, in
+// registers: pw = re^2 + im^2 (mode 0), re^2 (mode 1) or im^2 (mode 2).
+// Bin parity is column parity (64 * strip is even).  Row t + 1 of row g is
+// lane + 4's row g + 1, of g = 7 lane q's row 8; of row g + 8, lane + 4's
+// row g + 9, of 15 the next warp's row 0, from `xrow` (zero past the tile:
+// row 63 is the halo, its window is not written).
+__device__ __forceinline__ void combine_power(const float (&acc)[64],
+                                              const float (*xrow)[kStripCols], int warp,
+                                              int lane, int mode, float (&pw)[32]) {
+  const int g = lane >> 2, q = lane & 3;
+  const int src_lane = (lane + 4) & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float cu[4], su[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cu[e] = __shfl_sync(0xffffffffu, acc[4 * j + e], src_lane);
+      su[e] = __shfl_sync(0xffffffffu, acc[4 * (j + 8) + e], src_lane);
+    }
+    const int col = 8 * j + 2 * q;
+    float xc[2] = {0.f, 0.f}, xs[2] = {0.f, 0.f};
+    if (g == 7 && warp < 3) {
+      xc[0] = xrow[warp + 1][col];
+      xc[1] = xrow[warp + 1][col + 1];
+      xs[0] = xrow[warp + 1][kStripBins + col];
+      xs[1] = xrow[warp + 1][kStripBins + col + 1];
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float cn = g < 7 ? cu[e] : (e < 2 ? cu[e + 2] : xc[e - 2]);
+      const float sn = g < 7 ? su[e] : (e < 2 ? su[e + 2] : xs[e - 2]);
+      const float sg = (e & 1) ? -1.f : 1.f;
+      const float re = acc[4 * j + e] + sg * cn;
+      const float im = acc[4 * (j + 8) + e] + sg * sn;
+      pw[4 * j + e] = mode == 0 ? re * re + im * im : mode == 1 ? re * re : im * im;
+    }
+  }
+}
+
+// One strip's share of the mel energies in bf16x3 (K2, K1): the power p's
+// hi and lo planes as A fragments (k16 block i is columns j = 2i, 2i + 1),
+// the strip's mel planes in ring stage `stage` as B.  Waits for the products.
+template <Form F>
+__device__ __forceinline__ void mel_products(float* mel, const float (&pw)[32],
+                                             const Smem<F>& s, int stage) {
+  uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const int j = 2 * i + (f >> 1), e = (f & 1) * 2;
+      ahi[i][f] = pack_bf16(pw[4 * j + e], pw[4 * j + e + 1], &alo[i][f]);
+    }
+  fence_regs<16>(mel);
+  wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint64_t mhi = make_desc(s.ring[stage] + i * 16 * kMelCols);
+    const uint64_t mlo = make_desc(s.ring[stage] + kStepElems / 2 + i * 16 * kMelCols);
+    wgmma_m64n32k16_rs(mel, ahi[i], mhi, 1);
+    wgmma_m64n32k16_rs(mel, ahi[i], mlo, 1);
+    wgmma_m64n32k16_rs(mel, alo[i], mhi, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs<16>(mel);
 }
 
 // The whole kernel: each source's __global__ calls it with its dynamic
 // shared memory, kThreads threads a block, clusters of kCluster blocks.
-template <bool MEL_TC>
-__device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
-  constexpr int kItems = kStripItems + (MEL_TC ? 1 : 0);  // ring stages per strip
+template <Form F>
+__device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem<F>& s) {
+  using T = Traits<F>;
   const int tid = threadIdx.x;
   const uint32_t rank = kCluster > 1 ? cluster_rank() : 0;
   const int cluster = blockIdx.x / kCluster;
@@ -423,13 +550,13 @@ __device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
       mbar_init(&s.empty[i], 4 * kCluster);
     }
     mbar_init(&s.a_full, kSplitters);
-    for (int i = 0; i < kStripItems; ++i) mbar_init(&s.a_free[i], kConsumers);
+    for (int i = 0; i < kSplitItems; ++i) mbar_init(&s.a_free[i], kConsumers);
     mbar_init(&s.ml_full, kConsumers);
     mbar_init(&s.ml_free, kSplitters);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = tid; i < kCoefs * kMels; i += kThreads) (&s.dct[0][0])[i] = p.dct[i];
-  if constexpr (!MEL_TC) {
+  if constexpr (!T::kMelTc) {
     if (tid < kMels) {
       s.mlo[tid] = p.mel_lo[tid];
       s.mhi[tid] = p.mel_hi[tid];
@@ -448,6 +575,13 @@ __device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
     // overlaps that strip; then the previous tile's DCT and stores, which
     // overlap this tile's products.
     const int t = tid - kConsumers;
+    if constexpr (T::kFrames) {
+      // Row 64, which only the dropped window 63 reads, stays zero.
+      if (t < kKCores) {
+        reinterpret_cast<uint4*>(s.xhi)[t * T::kARows + kRows] = make_uint4(0, 0, 0, 0);
+        reinterpret_cast<uint4*>(s.xlo)[t * T::kARows + kRows] = make_uint4(0, 0, 0, 0);
+      }
+    }
     uint32_t k = 0;  // tiles split
     long long prev_r0 = 0;
     for (int grp = cluster; grp < groups; grp += clusters, ++k) {
@@ -458,8 +592,8 @@ __device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
       float v[2][kStageSteps][8];
       row.load(p, 0, v[0]);
 #pragma unroll
-      for (int it = 0; it < kStripItems; ++it) {
-        if (it + 1 < kStripItems) row.load(p, it + 1, v[(it + 1) & 1]);
+      for (int it = 0; it < kSplitItems; ++it) {
+        if (it + 1 < kSplitItems) row.load(p, it + 1, v[(it + 1) & 1]);
         if (k > 0) mbar_wait(&s.a_free[it], (k - 1) & 1);
         row.store(it, v[it & 1], s);
       }
@@ -487,15 +621,17 @@ __device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
       if (next < p.tiles) prefetch_tile(p, next, lane);
       if (lane == 0) {
         for (int strip = 0; strip < kStrips; ++strip) {
-          for (int it = 0; it < kItems; ++it, ++n) {
+          for (int it = 0; it < T::kItems; ++it, ++n) {
             const int st = n % kStages;
             mbar_wait(&s.empty[st], ((n / kStages) & 1) ^ 1);
             // kStageSteps k16 steps of the strip, or its mel planes.
-            const int elems = it < kStripItems ? kStageElems : kStepElems;
+            const bool dft = it < T::kDftItems;
+            const int elems = dft ? kStageElems : kStepElems;
             mbar_expect_tx(&s.full[st], elems * sizeof(bf16));
             const bf16* src =
-                it < kStripItems
-                    ? p.basis + (static_cast<size_t>(strip) * kSteps + it * kStageSteps) * kStepElems
+                dft ? p.basis +
+                          (static_cast<size_t>(strip) * T::kDftSteps + it * kStageSteps) *
+                              kStepElems
                     : p.melw + static_cast<size_t>(strip) * kStepElems;
             const int part = elems / kCluster;
             bulk_copy(s.ring[st] + rank * part, src + rank * part, part * sizeof(bf16),
@@ -518,19 +654,22 @@ __device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
     for (int grp = cluster; grp < groups; grp += clusters, ++k) {
       mbar_wait(&s.a_full, k & 1);  // the tile's planes are written
-      float mel[16];                         // K2: the tile's [64, 32] mel energies
-      float ml3[kRows * kMels / kConsumers];  // K3: this thread's (window, mel) sums
+      float mel[16];                         // K2, K1: the tile's [64, 32] mel energies
+      float ml3[kRows * kMels / kConsumers];  // K3, K4: this thread's (window, mel) sums
 #pragma unroll
       for (int i = 0; i < 16; ++i) mel[i] = 0.f;
 #pragma unroll
       for (int i = 0; i < kRows * kMels / kConsumers; ++i) ml3[i] = 0.f;
 
       for (int strip = 0; strip < kStrips; ++strip) {
-        // The strip's [64, 128] projection: 25 k16 steps of three bf16
-        // products, kStageSteps from each ring stage, the previous stage's
-        // products in flight while the next stage's are issued.
+        const bool last = strip == kStrips - 1;
+        // The strip's [64, 128] projection: kDftSteps k16 steps of three
+        // bf16 products, kStageSteps from each ring stage, the previous
+        // stage's products in flight while the next stage's are issued.
+        // After the last strip's final read of a column group, its planes
+        // may take the next tile's samples.
         int prev = 0;
-        for (int it = 0; it < kStripItems; ++it, ++n) {
+        for (int it = 0; it < T::kDftItems; ++it, ++n) {
           const int st = n % kStages;
           mbar_wait(&s.full[st], (n / kStages) & 1);
           fence_regs<64>(acc);
@@ -540,8 +679,17 @@ __device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
             const int ks = it * kStageSteps + j;
             const uint64_t bhi = make_desc(s.ring[st] + j * kStepElems);
             const uint64_t blo = make_desc(s.ring[st] + j * kStepElems + kStepElems / 2);
-            const uint64_t ahi = make_desc(s.xhi + ks * 16 * kRows);
-            const uint64_t alo = make_desc(s.xlo + ks * 16 * kRows);
+            uint64_t ahi, alo;
+            if constexpr (T::kFrames) {
+              // Taps 400..799 (steps 25..49) are block t + 1's: rows 1..64.
+              const int half = ks >= kSteps;
+              const int at = (ks - half * kSteps) * 2 * T::kARows * 8 + half * 8;
+              ahi = make_desc_plain(s.xhi + at, T::kARows * 16);
+              alo = make_desc_plain(s.xlo + at, T::kARows * 16);
+            } else {
+              ahi = make_desc(s.xhi + ks * 16 * kRows);
+              alo = make_desc(s.xlo + ks * 16 * kRows);
+            }
             wgmma_m64n128k16_ss(acc, ahi, bhi, ks > 0);
             wgmma_m64n128k16_ss(acc, ahi, blo, 1);
             wgmma_m64n128k16_ss(acc, alo, bhi, 1);
@@ -551,87 +699,50 @@ __device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
           if (it > 0) {
             wgmma_wait<1>();
             release(s, prev, lane);
-            if (strip == kStrips - 1) mbar_arrive(&s.a_free[it - 1]);  // its k is read
+            if (last && it - 1 >= T::kAReuse) mbar_arrive(&s.a_free[it - 1 - T::kAReuse]);
           }
           prev = st;
         }
         wgmma_wait<0>();
         fence_regs<64>(acc);
         release(s, prev, lane);
-        if (strip == kStrips - 1) mbar_arrive(&s.a_free[kStripItems - 1]);
+        if (last) mbar_arrive(&s.a_free[kSplitItems - 1]);
 
-        // Parity combine and power in registers.  Bin parity is column
-        // parity (64 * strip is even).  Row t + 1 of row g is lane + 4's row
-        // g + 1, of g = 7 lane q's row 8; of row g + 8, lane + 4's row g + 9,
-        // of 15 the next warp's row 0, through shared memory (zero past the
-        // tile: row 63 is the halo, its window is not written).
-        float(*xrow)[kStripCols] = s.xrow[parity];
-        parity ^= 1;
-        if (g == 0) {
-#pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            xrow[warp][8 * j + 2 * q] = acc[4 * j];
-            xrow[warp][8 * j + 2 * q + 1] = acc[4 * j + 1];
-          }
-        }
-        consumers_sync();
-        const int src_lane = (lane + 4) & 31;
+        // The power in registers; for the block-parity forms after the
+        // parity combine, each warp's first row published for the warp above
+        // it.  K1's strip 6 takes re^2 first and im^2 after (below).
         float pw[32];
+        const float(*xrow)[kStripCols] = s.xrow[parity];
+        if constexpr (T::kFrames) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float cu[4], su[4];
+          for (int i = 0; i < 32; ++i) pw[i] = acc[i] * acc[i] + acc[32 + i] * acc[32 + i];
+        } else {
+          float(*row0)[kStripCols] = s.xrow[parity];
+          parity ^= 1;
+          if (g == 0) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            cu[e] = __shfl_sync(0xffffffffu, acc[4 * j + e], src_lane);
-            su[e] = __shfl_sync(0xffffffffu, acc[4 * (j + 8) + e], src_lane);
+            for (int j = 0; j < 16; ++j) {
+              row0[warp][8 * j + 2 * q] = acc[4 * j];
+              row0[warp][8 * j + 2 * q + 1] = acc[4 * j + 1];
+            }
           }
-          const int col = 8 * j + 2 * q;
-          float xc[2] = {0.f, 0.f}, xs[2] = {0.f, 0.f};
-          if (g == 7 && warp < 3) {
-            xc[0] = xrow[warp + 1][col];
-            xc[1] = xrow[warp + 1][col + 1];
-            xs[0] = xrow[warp + 1][kStripBins + col];
-            xs[1] = xrow[warp + 1][kStripBins + col + 1];
-          }
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float cn = g < 7 ? cu[e] : (e < 2 ? cu[e + 2] : xc[e - 2]);
-            const float sn = g < 7 ? su[e] : (e < 2 ? su[e + 2] : xs[e - 2]);
-            const float sg = (e & 1) ? -1.f : 1.f;
-            const float re = acc[4 * j + e] + sg * cn;
-            const float im = acc[4 * (j + 8) + e] + sg * sn;
-            pw[4 * j + e] = re * re + im * im;
-          }
+          consumers_sync();
+          combine_power(acc, xrow, warp, lane, T::kTailFold && last ? 1 : 0, pw);
         }
 
-        if constexpr (MEL_TC) {
-          // The strip's share of the mel energies: the power's hi and lo
-          // planes as A fragments (k16 block i is columns j = 2i, 2i + 1),
-          // the mel planes from the strip's ring stage as B.
-          uint32_t ahi[4][4], alo[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int f = 0; f < 4; ++f) {
-              const int j = 2 * i + (f >> 1), e = (f & 1) * 2;
-              ahi[i][f] = pack_bf16(pw[4 * j + e], pw[4 * j + e + 1], &alo[i][f]);
-            }
+        if constexpr (T::kMelTc) {
+          // The strip's mel planes arrive as one more ring stage; K1's strip
+          // 6 reads them twice, under the re^2 and the im^2 planes.
           const int st = n % kStages;
           mbar_wait(&s.full[st], (n / kStages) & 1);
           ++n;
-          fence_regs<16>(mel);
-          wgmma_fence();
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const uint64_t mhi = make_desc(s.ring[st] + i * 16 * kMelCols);
-            const uint64_t mlo = make_desc(s.ring[st] + kStepElems / 2 + i * 16 * kMelCols);
-            wgmma_m64n32k16_rs(mel, ahi[i], mhi, 1);
-            wgmma_m64n32k16_rs(mel, ahi[i], mlo, 1);
-            wgmma_m64n32k16_rs(mel, alo[i], mhi, 1);
+          mel_products(mel, pw, s, st);
+          if constexpr (T::kTailFold) {
+            if (last) {
+              combine_power(acc, xrow, warp, lane, 2, pw);
+              mel_products(mel, pw, s, st);
+            }
           }
-          wgmma_commit();
-          wgmma_wait<0>();
-          fence_regs<16>(mel);
           release(s, st, lane);
         } else {
           // Sparse f32 mel over each filter's bin range, from shared memory:
@@ -662,7 +773,7 @@ __device__ __forceinline__ void mfcc_tc_tile(const Params& p, Smem& s) {
       // The log mel energies in f32, handed to the splitters for the DCT and
       // the stores once they are done with the previous tile's.
       if (k > 0) mbar_wait(&s.ml_free, (k - 1) & 1);
-      if constexpr (MEL_TC) {
+      if constexpr (T::kMelTc) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -693,10 +804,11 @@ inline bool rows_aligned16(const float* pcm, long long T) {
   return T % 4 == 0 && (reinterpret_cast<std::uintptr_t>(pcm) & 15) == 0;
 }
 
-// Launch `kernel` (a source's __global__ around mfcc_tc_tile) on `stream`:
-// persistent clusters, as many as fit on the card at once, no more than the
-// tiles need.  Returns the CUDA error of the launch; it does not
-// synchronise.
+// Launch `kernel` (a source's __global__ around mfcc_tc_tile<F>) on
+// `stream`: persistent clusters, as many as fit on the card at once, no
+// more than the tiles need.  Returns the CUDA error of the launch; it does
+// not synchronise.
+template <Form F>
 inline cudaError_t launch(void (*kernel)(Params), Params p, long long B, cudaStream_t stream) {
   if (B <= 0 || p.nb < 2) return cudaErrorInvalidValue;
   p.rows = B * p.nb;
@@ -704,7 +816,7 @@ inline cudaError_t launch(void (*kernel)(Params), Params p, long long B, cudaStr
   if (tiles > INT_MAX - kCluster) return cudaErrorInvalidValue;
   p.tiles = static_cast<int>(tiles);
   p.aligned16 = rows_aligned16(p.pcm, p.T);
-  const int smem = static_cast<int>(sizeof(Smem));
+  const int smem = static_cast<int>(sizeof(Smem<F>));
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];

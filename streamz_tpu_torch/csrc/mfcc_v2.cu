@@ -25,9 +25,12 @@
 
 namespace {
 
+constexpr streamz_tc::Form kForm = streamz_tc::Form::kV2;
+using Smem = streamz_tc::Smem<kForm>;
+
 __global__ void __launch_bounds__(streamz_tc::kThreads, 1) mfcc_v2_kernel(streamz_tc::Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  streamz_tc::mfcc_tc_tile<false>(p, *reinterpret_cast<streamz_tc::Smem*>(smem_raw));
+  streamz_tc::mfcc_tc_tile(p, *reinterpret_cast<Smem*>(smem_raw));
 }
 
 }  // namespace
@@ -35,7 +38,7 @@ __global__ void __launch_bounds__(streamz_tc::kThreads, 1) mfcc_v2_kernel(stream
 extern "C" {
 
 // Shared memory one block asks for, in bytes (for reports and checks).
-int streamz_mfcc_v2_smem_bytes() { return static_cast<int>(sizeof(streamz_tc::Smem)); }
+int streamz_mfcc_v2_smem_bytes() { return static_cast<int>(sizeof(Smem)); }
 
 // Launch K3 on `stream`.  pcm: [B, T] f32 contiguous; basis: the
 // [7, 25, 4096] bf16 stages of kernel_constants()["basis_tc"]; fbw, mel_lo,
@@ -59,7 +62,7 @@ int streamz_mfcc_base_v2(const float* pcm, long long B, long long T,
   p.dct = dct;
   p.out = out;
   return static_cast<int>(
-      streamz_tc::launch(mfcc_v2_kernel, p, B, static_cast<cudaStream_t>(stream)));
+      streamz_tc::launch<kForm>(mfcc_v2_kernel, p, B, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -19,8 +19,8 @@
 // whose A is the power straight from the registers and whose B, the strip's
 // mel planes, arrives through the same ring; the [64, 32] mel accumulator
 // stays in registers across the 7 strips, as the TPU kernel carries its mel
-// partial sums across _STRIPS3 strips.  K1 keeps FP32 on the CUDA cores, so
-// 'auto' measures two designs.
+// partial sums across _STRIPS3 strips.  K1 (mfcc_base.cu) is this form with
+// the TPU kernel v4's tail, the other candidate that 'auto' measures.
 //
 // Plain C interface, loaded with ctypes from streamz_tpu_torch/dsp/
 // mfcc_kernel.py, which builds this file with nvcc at first use.
@@ -29,9 +29,12 @@
 
 namespace {
 
+constexpr streamz_tc::Form kForm = streamz_tc::Form::kV3;
+using Smem = streamz_tc::Smem<kForm>;
+
 __global__ void __launch_bounds__(streamz_tc::kThreads, 1) mfcc_v3_kernel(streamz_tc::Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  streamz_tc::mfcc_tc_tile<true>(p, *reinterpret_cast<streamz_tc::Smem*>(smem_raw));
+  streamz_tc::mfcc_tc_tile(p, *reinterpret_cast<Smem*>(smem_raw));
 }
 
 }  // namespace
@@ -39,7 +42,7 @@ __global__ void __launch_bounds__(streamz_tc::kThreads, 1) mfcc_v3_kernel(stream
 extern "C" {
 
 // Shared memory one block asks for, in bytes (for reports and checks).
-int streamz_mfcc_v3_smem_bytes() { return static_cast<int>(sizeof(streamz_tc::Smem)); }
+int streamz_mfcc_v3_smem_bytes() { return static_cast<int>(sizeof(Smem)); }
 
 // Launch K2 on `stream`.  pcm: [B, T] f32 contiguous; basis: the
 // [7, 25, 4096] bf16 stages of kernel_constants()["basis_tc"]; melw: the
@@ -58,7 +61,7 @@ int streamz_mfcc_base_v3(const float* pcm, long long B, long long T,
   p.dct = dct;
   p.out = out;
   return static_cast<int>(
-      streamz_tc::launch(mfcc_v3_kernel, p, B, static_cast<cudaStream_t>(stream)));
+      streamz_tc::launch<kForm>(mfcc_v3_kernel, p, B, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -5,10 +5,12 @@ The port of ``streamz_tpu/dsp/features.py`` (reference
 backend names.  Each kernel backend runs its own hand-written CUDA kernel on
 the card (:mod:`streamz_tpu_torch.dsp.mfcc_kernel`):
 
-- ``'pallas_v4'``: K1, ``csrc/mfcc_base.cu`` (FP32, CUDA cores);
+- ``'pallas_v4'``: K1, ``csrc/mfcc_base.cu`` (K2 with v4's tail: the tail
+  bins' squares split before the mel);
 - ``'pallas_v3'``: K2, ``csrc/mfcc_v3.cu`` (bf16x3 DFT and mel, tensor cores);
 - ``'pallas_v2'``: K3, ``csrc/mfcc_v2.cu`` (bf16x3 DFT, tensor cores; f32 mel);
-- ``'pallas'``: K4, ``csrc/mfcc_frames.cu`` (FP32 frame-major 800-tap DFT);
+- ``'pallas'``: K4, ``csrc/mfcc_frames.cu`` (bf16x3 frame-major 800-tap
+  DFT, tensor cores; f32 mel);
 - ``'plain'``: the plain PyTorch formulation, the counterpart of the JAX
   package's ``'jax'`` backend; it runs on the card only when asked for by
   name;
@@ -76,8 +78,8 @@ def _probe_versions() -> tuple:
 
 
 def autotune_frontend(force: bool = False) -> str:
-    """Measure K2 (``'pallas_v3'``, tensor cores) against K1
-    (``'pallas_v4'``, CUDA cores) on this card and return the winner; a
+    """Measure K2 (``'pallas_v3'``) against K1 (``'pallas_v4'``) on this
+    card and return the winner; a
     cold cache with probing disabled gives ``'pallas_v4'``.  Without a card
     ``'plain'``, without probing.  Cached in-process and on disk per card."""
     # The JAX package's probe: 32 clips x 10 s of N(0, 0.1) noise from seed

@@ -12,13 +12,15 @@ pallas_v2   ``mfcc_base_v2``     ``mfcc_v2.cu`` (K3)     ``_mfcc_kernel_v2``
 pallas      ``mfcc_base_frames`` ``mfcc_frames.cu`` (K4) ``_mfcc_kernel``
 ==========  ===================  ======================  =====================
 
-K1 and K4 are FP32 FMA on the CUDA cores (K1 the block-parity form, K4 the
-frame-major 800-tap DFT); K3 and K2 run the DFT in bf16x3 on the tensor cores
-(``wgmma``, one tile design in ``csrc/mfcc_tc.cuh``), with the mel stage in
-f32 (K3) or in bf16x3 too (K2), as the TPU kernels compute.  They stream the
-DFT basis (and K2 its mel weights) through shared memory in the stage order
-and layout that the host lays out once: ``kernel_constants()``'s
-``"basis_tc"`` and ``"mel_tc"``.  :mod:`streamz_tpu_torch._cuda_build`
+All four run the DFT in bf16x3 on the tensor cores, as the TPU kernels
+compute, on one tile design (``wgmma``, ``csrc/mfcc_tc.cuh``) in four forms:
+K3 the block-parity DFT with the mel stage in f32, K2 with the mel stage in
+bf16x3 too, K1 K2's with the tail bins' squares split before the mel (the
+TPU kernel v4's doubled mel rows), and K4 the frame-major 800-tap DFT with
+the mel stage in f32.  They stream the DFT basis (and K1 and K2 their mel
+weights) through shared memory in the stage order and layout that the host
+lays out once: ``kernel_constants()``'s ``"basis_tc"``,
+``"frame_basis_tc"`` and ``"mel_tc"``.  :mod:`streamz_tpu_torch._cuda_build`
 builds each source with ``nvcc`` for ``sm_90a`` at first use into
 ``streamz_tpu_torch/_build/`` and loads its plain C entry point with
 ``ctypes``; kernels launch on PyTorch's current stream.
@@ -26,10 +28,10 @@ builds each source with ``nvcc`` for ``sm_90a`` at first use into
 Every wrapper takes a [B, T] f32 PCM batch and returns the base MFCCs
 [B, max(T//400 - 1, 0), 20].  A CUDA tensor launches the kernel or raises;
 a CPU tensor runs the kernel's plain PyTorch version instead, because there
-is no kernel to run there: :func:`streamz_tpu_torch.dsp.mfcc.mfcc_base` (K1),
-:func:`mfcc_base_bf16x3_plain` (K2, K3) and :func:`mfcc_base_frames_plain`
-(K4).  Clips shorter than two blocks give an empty [B, 0, 20] without a
-launch.  Each wrapper counts its kernel launches in ``.launches``.
+is no kernel to run there: :func:`mfcc_base_bf16x3_plain` (K1, K2, K3) and
+:func:`mfcc_base_frames_plain` (K4).  Clips shorter than two blocks give an
+empty [B, 0, 20] without a launch.  Each wrapper counts its kernel launches
+in ``.launches``.
 """
 
 from __future__ import annotations
@@ -50,17 +52,17 @@ SOURCES = {"K1": "mfcc_base", "K2": "mfcc_v3", "K3": "mfcc_v2", "K4": "mfcc_fram
 BUILD_DIR = _cuda_build.BUILD_DIR
 NVCC_FLAGS = _cuda_build.NVCC_FLAGS
 
-_GROUP_BINS = 64  # must match kGroupBins / kStripBins in the .cuh sources
-_GROUPS = 7       # must match kGroups / kStrips
-_MEL_COLS = 32    # must match kMelCols (mfcc_tc.cuh)
-_STEPS = 25       # k16 steps of the 400-sample block: kSteps (mfcc_tc.cuh)
+_GROUP_BINS = 64  # must match kStripBins (mfcc_tc.cuh)
+_GROUPS = 7       # must match kStrips
+_MEL_COLS = 32    # must match kMelCols
+_TAIL = 384       # K1's tail bins 384..400: the TPU kernel v4's _T0
 _WIN = config.WINDOW_SIZE
 _BLOCK = config.HOP_SIZE
 
 # Argument types of each source's launch entry after (pcm, B, T): the
 # constants' pointers, then out and the stream.
 _ENTRIES = {
-    "mfcc_base": ("streamz_mfcc_base_v4", 6),
+    "mfcc_base": ("streamz_mfcc_base_v4", 3),
     "mfcc_frames": ("streamz_mfcc_base_frames", 6),
     "mfcc_v2": ("streamz_mfcc_base_v2", 6),
     "mfcc_v3": ("streamz_mfcc_base_v3", 3),
@@ -138,24 +140,28 @@ def _swizzle32(blocks: np.ndarray) -> np.ndarray:
 
 
 def tc_basis_stages(basis: np.ndarray) -> np.ndarray:
-    """The [400, 896] grouped basis as K2's and K3's ring stages: uint16
-    bf16 bits [7 strips, 25 k16 steps, 4096].  A stage is the hi plane then
-    the lo plane of one strip's 128 columns (cos | -sin) at 16 k, each a
+    """A [taps, 896] grouped basis as the tile's ring stages: uint16 bf16
+    bits [7 strips, taps / 16 k16 steps, 4096] (the [400, 896] block basis
+    for K1-K3, the [800, 896] frame basis for K4).  A stage is the hi plane
+    then the lo plane of one strip's 128 columns (cos | -sin) at 16 k, each a
     K-major block: column n's 16 k in 32 bytes at 32 n, in wgmma's 32-byte
     swizzle (:func:`_swizzle32`)."""
+    steps = basis.shape[0] // 16
     planes = []
     for plane in _bf16_bits(basis):
         # [k = (step, k8, kk), col = (strip, n)] -> [strip, step, n, k8, kk]
-        p = plane.reshape(_STEPS, 2, 8, _GROUPS, 128).transpose(3, 0, 4, 1, 2)
-        planes.append(_swizzle32(p).reshape(_GROUPS, _STEPS, -1))
+        p = plane.reshape(steps, 2, 8, _GROUPS, 128).transpose(3, 0, 4, 1, 2)
+        planes.append(_swizzle32(p).reshape(_GROUPS, steps, -1))
     return np.ascontiguousarray(np.concatenate(planes, axis=2))
 
 
 def tc_mel_stages(mel_dense: np.ndarray) -> np.ndarray:
-    """The [448, 32] dense filterbank as K2's mel stages: uint16 bf16 bits
-    [7 strips, 4096], the hi plane then the lo plane of the strip's 64 bins
-    x 32 mels as four K-major blocks of 16 bins (1 KB each): mel n's 16 bins
-    in 32 bytes at 32 n, in wgmma's 32-byte swizzle."""
+    """The [448, 32] dense filterbank as K2's and K1's mel stages: uint16
+    bf16 bits [7 strips, 4096], the hi plane then the lo plane of the
+    strip's 64 bins x 32 mels as four K-major blocks of 16 bins (1 KB each):
+    mel n's 16 bins in 32 bytes at 32 n, in wgmma's 32-byte swizzle.  K1
+    reads strip 6's four blocks twice, under its tail's re^2 and im^2
+    planes: the TPU kernel v4's doubled mel rows 384..511."""
     planes = []
     for plane in _bf16_bits(mel_dense):
         # [bin = (strip, step, k8, kk), mel n] -> [strip, step, n, k8, kk]
@@ -167,15 +173,17 @@ def tc_mel_stages(mel_dense: np.ndarray) -> np.ndarray:
 def kernel_constants() -> dict:
     """Host (numpy) constants of the kernels' layouts.
 
-    - ``basis`` [400, 896]: the block basis in 7 groups of 64 bins (K1).
-    - ``basis_tc`` [7, 25, 4096] uint16: its bf16 hi/lo split as K2's and
-      K3's ring stages (:func:`tc_basis_stages`).
-    - ``frame_basis`` [800, 896]: the full-window basis, same grouping (K4).
+    - ``basis`` [400, 896]: the block basis in 7 groups of 64 bins, each
+      group's 64 cos columns then its 64 -sin columns.
+    - ``basis_tc`` [7, 25, 4096] uint16: its bf16 hi/lo split as K1's, K2's
+      and K3's ring stages (:func:`tc_basis_stages`).
+    - ``frame_basis`` [800, 896]: the full-window basis, same grouping.
+    - ``frame_basis_tc`` [7, 50, 4096] uint16: its split as K4's stages.
     - ``fbw``: the mel weights, each filter's contiguous nonzero bin range
       [``mel_lo[m]``, ``mel_hi[m]``) stored from offset ``mel_off[m]``.
     - ``mel_dense`` [448, 32]: the filterbank transposed and zero padded.
-    - ``mel_tc`` [7, 4096] uint16: its bf16 hi/lo split as K2's mel stages
-      (:func:`tc_mel_stages`).
+    - ``mel_tc`` [7, 4096] uint16: its bf16 hi/lo split as K2's and K1's mel
+      stages (:func:`tc_mel_stages`).
     - ``dct`` [20, 26]: the unnormalized DCT-II.
     """
     ct, st = melmod.dft_block_matrices()
@@ -191,10 +199,12 @@ def kernel_constants() -> dict:
     mel_dense = np.zeros((_GROUPS * _GROUP_BINS, _MEL_COLS), np.float32)
     mel_dense[: fb.shape[1], : fb.shape[0]] = fb.T
     basis = _grouped(ct, st)
+    frame_basis = _grouped(*_frame_dft())
     return {
         "basis": basis,
         "basis_tc": tc_basis_stages(basis),
-        "frame_basis": _grouped(*_frame_dft()),
+        "frame_basis": frame_basis,
+        "frame_basis_tc": tc_basis_stages(frame_basis),
         "fbw": np.asarray(weights, np.float32),
         "mel_lo": np.asarray(lo, np.int32),
         "mel_hi": np.asarray(hi, np.int32),
@@ -225,17 +235,15 @@ def _device_constants(device: torch.device, name: str):
         return torch.from_numpy(a).to(device)
 
     sparse_mel = (t("fbw"), t("mel_lo"), t("mel_hi"), t("mel_off"))
-    if name == "mfcc_base":
-        return (t("basis"), *sparse_mel, t("dct"))
     if name == "mfcc_frames":
-        return (t("frame_basis"), *sparse_mel, t("dct"))
+        return (t("frame_basis_tc"), *sparse_mel, t("dct"))
     if name == "mfcc_v2":
         return (t("basis_tc"), *sparse_mel, t("dct"))
     return (t("basis_tc"), t("mel_tc"), t("dct"))
 
 
 # ---------------------------------------------------------------------------
-# The plain versions of K2, K3 (bf16x3) and K4 (frame-major).
+# The plain versions: K1, K2, K3 (block parity) and K4 (frame-major).
 # ---------------------------------------------------------------------------
 
 
@@ -253,50 +261,62 @@ def _log_mel_dct(power: torch.Tensor, mel_e: torch.Tensor = None) -> torch.Tenso
     return torch.log(torch.clamp(mel_e, min=1e-12)) @ dct_t
 
 
-def mfcc_base_frames_plain(pcm: torch.Tensor) -> torch.Tensor:
-    """K4's function in plain PyTorch: each 800-sample window (hop 400) times
-    the full-window [800, 802] cos | -sin basis, then power, mel, log and
-    DCT.  pcm: [B, T] f32 → [B, max(T//400 - 1, 0), 20]."""
-    B, T = pcm.shape
-    nb = T // _BLOCK
-    if nb < 2:
-        return pcm.new_zeros((B, 0, config.MFCC_SIZE))
-    frames = pcm[:, : nb * _BLOCK].unfold(1, _WIN, _BLOCK)  # [B, nb-1, 800]
-    parts = frames @ _frame_constants(pcm.device)
-    nbins = config.N_FFT_BINS
-    re, im = parts[..., :nbins], parts[..., nbins:]
-    return _log_mel_dct(re * re + im * im)
-
-
 def _planes(a: torch.Tensor):
     """``bf16_split`` as f32 tensors, whose products are exact in f32."""
     hi, lo = bf16_split(a)
     return hi.to(torch.float32), lo.to(torch.float32)
 
 
-def mfcc_base_bf16x3_plain(pcm: torch.Tensor, mel_bf16x3: bool) -> torch.Tensor:
-    """K2's and K3's function in plain PyTorch: the block-parity DFT in
-    bf16x3 (x_hi d_hi + x_hi d_lo + x_lo d_hi as f32 matmuls of bf16 values),
-    the parity combine and power, then the mel product in bf16x3
-    (``mel_bf16x3=True``, K2) or in f32 (K3), log and DCT in f32.  The same
-    products as the kernels, summed in another order.
-    pcm: [B, T] f32 → [B, max(T//400 - 1, 0), 20]."""
+def _bf16x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in bf16x3: a_hi b_hi + a_hi b_lo + a_lo b_hi as f32 matmuls of
+    bf16 values, the TPU kernels' three products."""
+    ah, al = _planes(a)
+    bh, bl = _planes(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def mfcc_base_frames_plain(pcm: torch.Tensor) -> torch.Tensor:
+    """K4's function in plain PyTorch: each 800-sample window (hop 400) times
+    the full-window [800, 802] cos | -sin basis in bf16x3, then power, mel,
+    log and DCT in f32.  The same products as the kernel, summed in another
+    order.  pcm: [B, T] f32 → [B, max(T//400 - 1, 0), 20]."""
+    B, T = pcm.shape
+    nb = T // _BLOCK
+    if nb < 2:
+        return pcm.new_zeros((B, 0, config.MFCC_SIZE))
+    frames = pcm[:, : nb * _BLOCK].unfold(1, _WIN, _BLOCK)  # [B, nb-1, 800]
+    parts = _bf16x3(frames, _frame_constants(pcm.device))
+    nbins = config.N_FFT_BINS
+    re, im = parts[..., :nbins], parts[..., nbins:]
+    return _log_mel_dct(re * re + im * im)
+
+
+def mfcc_base_bf16x3_plain(pcm: torch.Tensor, mel_bf16x3: bool,
+                           tail_fold: bool = False) -> torch.Tensor:
+    """K1's, K2's and K3's function in plain PyTorch: the block-parity DFT
+    in bf16x3, the parity combine and power, then the mel product in bf16x3
+    (``mel_bf16x3=True``: K2, and K1 with ``tail_fold``) or in f32 (K3), log
+    and DCT in f32.  ``tail_fold`` takes the TPU kernel v4's tail: for bins
+    384..400 re^2 and im^2 meet the filterbank each in bf16x3 instead of
+    their f32 sum.  The same products as the kernels, summed in another
+    order.  pcm: [B, T] f32 → [B, max(T//400 - 1, 0), 20]."""
     dft_top, sign, fb_t, _ = mfcc._constants(pcm.device)
     B, T = pcm.shape
     nb = T // _BLOCK
     nbins = config.N_FFT_BINS
-    xh, xl = _planes(pcm[:, : nb * _BLOCK].reshape(B, nb, _BLOCK))
-    dh, dl = _planes(dft_top)
-    parts = xh @ dh + xh @ dl + xl @ dh  # [B, nb, 802]
+    parts = _bf16x3(pcm[:, : nb * _BLOCK].reshape(B, nb, _BLOCK), dft_top)  # [B, nb, 802]
     cos_p, sin_p = parts[..., :nbins], parts[..., nbins:]
     re = cos_p[:, :-1] + sign * cos_p[:, 1:]
     im = sin_p[:, :-1] + sign * sin_p[:, 1:]
     power = re * re + im * im
     if not mel_bf16x3:
         return _log_mel_dct(power)
-    ph, pl = _planes(power)
-    mh, ml = _planes(fb_t)
-    return _log_mel_dct(power, ph @ mh + ph @ ml + pl @ mh)
+    if not tail_fold:
+        return _log_mel_dct(power, _bf16x3(power, fb_t))
+    re_t, im_t = re[..., _TAIL:], im[..., _TAIL:]
+    mel_e = (_bf16x3(power[..., :_TAIL], fb_t[:_TAIL])
+             + _bf16x3(re_t * re_t, fb_t[_TAIL:]) + _bf16x3(im_t * im_t, fb_t[_TAIL:]))
+    return _log_mel_dct(power, mel_e)
 
 
 # ---------------------------------------------------------------------------
@@ -337,9 +357,9 @@ def _launch(kid: str, name: str, pcm: torch.Tensor, wrapper) -> torch.Tensor:
 
 
 def mfcc_base_v4(pcm: torch.Tensor) -> torch.Tensor:
-    """K1 (backend ``'pallas_v4'``): FP32 block-parity MFCC base."""
+    """K1 (backend ``'pallas_v4'``): K2 with the TPU kernel v4's tail."""
     if pcm.device.type == "cpu":
-        return mfcc.mfcc_base(pcm)
+        return mfcc_base_bf16x3_plain(pcm, True, tail_fold=True)
     return _launch("K1", "mfcc_base", pcm, mfcc_base_v4)
 
 
@@ -358,7 +378,7 @@ def mfcc_base_v2(pcm: torch.Tensor) -> torch.Tensor:
 
 
 def mfcc_base_frames(pcm: torch.Tensor) -> torch.Tensor:
-    """K4 (backend ``'pallas'``): FP32 frame-major MFCC base."""
+    """K4 (backend ``'pallas'``): bf16x3 frame-major 800-tap DFT, f32 mel."""
     if pcm.device.type == "cpu":
         return mfcc_base_frames_plain(pcm)
     return _launch("K4", "mfcc_frames", pcm, mfcc_base_frames)

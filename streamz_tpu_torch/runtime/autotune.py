@@ -1,9 +1,9 @@
 """Measured backend selection, cached per card.
 
 The port of ``streamz_tpu/runtime/autotune.py``.  When two formulations of
-a hot stage exist (here K1 on the CUDA cores against K2 on the tensor
-cores), the default is chosen by measurement on the card in use, not
-hardcoded.  Decisions are cached in-process and on disk under
+a hot stage exist (here the MFCC base as K1, the TPU kernel v4's
+formulation, against K2, v3's), the default is chosen by measurement on
+the card in use, not hardcoded.  Decisions are cached in-process and on disk under
 ``"<stage>:<torch.cuda.get_device_name()>"``, so later processes on the
 same kind of card skip the probe.
 

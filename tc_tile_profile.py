@@ -1,25 +1,31 @@
 #!/usr/bin/env python3
-"""Where K2's and K3's time goes inside their shared tensor-core tile.
+"""Where the time of K1-K4 goes inside their shared tensor-core tile.
 
     python3 tc_tile_profile.py        # from the root of a checkout, one NVIDIA GPU
 
-Builds two measurement copies of ``streamz_tpu_torch/csrc/mfcc_tc.cuh`` with
-K2's and K3's entry sources into a temporary directory (the package's own
-build is untouched), runs each at the main path's [64, 819200], and prints:
+Builds measurement copies of ``streamz_tpu_torch/csrc/mfcc_tc.cuh`` with the
+entry sources of K1 (``mfcc_base.cu``), K2 (``mfcc_v3.cu``), K3
+(``mfcc_v2.cu``) and K4 (``mfcc_frames.cu``) into a temporary directory (the
+package's own build is untouched), runs each at the main path's
+[64, 819200], and prints:
 
 - ``clocks``: the tile with ``clock64()`` marks on the consumer warpgroup's
   first thread of every CTA, summed over the CTAs: the wait for a tile's
   PCM planes, the DFT products (ring waits included), the combine and
-  power, the mel stage, and the hand-off of the log mel energies, each as a
-  share of the CTA's cycles from its first to its last instruction.  The
-  marks cost a few percent of the kernel's time, printed beside it.
+  power (K4: the power alone), the mel stage, and the hand-off of the log
+  mel energies, each as a share of the CTA's cycles from its first to its
+  last instruction.  The marks cost a few percent of the kernel's time,
+  printed beside it.
 - ``cluster1``: the tile with clusters of one CTA (``kCluster = 1``), so
   every CTA reads each basis stage from L2 itself instead of sharing one
   multicast read with its neighbour; the kernel time beside the shipped
   tile's.
+- ``cluster4`` (K4 only): K4 with clusters of four CTAs, so one L2 read of
+  each stage serves four tiles; beside the shipped clusters of two.
 
-Both copies are held against the plain version within 1e-3.  Numbers also
-go to ``chiprun_out/tc_tile_profile.json``.  Exits non-zero without CUDA.
+Every copy is held against its kernel's plain version within 1e-3.
+Numbers also go to ``chiprun_out/tc_tile_profile.json``.  Exits non-zero
+without CUDA.
 """
 
 from __future__ import annotations
@@ -52,13 +58,14 @@ CLOCKS = [
      "    const long long _start = clock64();\n"),
     ("      mbar_wait(&s.a_full, k & 1);  // the tile's planes are written\n",
      "      { MARK mbar_wait(&s.a_full, k & 1); ADD(0) }\n"),
-    ("        for (int it = 0; it < kStripItems; ++it, ++n) {",
-     "        { MARK\n        for (int it = 0; it < kStripItems; ++it, ++n) {"),
-    ("        release(s, prev, lane);\n        if (strip == kStrips - 1) mbar_arrive(&s.a_free",
+    ("        for (int it = 0; it < T::kDftItems; ++it, ++n) {",
+     "        { MARK\n        for (int it = 0; it < T::kDftItems; ++it, ++n) {"),
+    ("        release(s, prev, lane);\n        if (last) mbar_arrive(&s.a_free",
      "        release(s, prev, lane);\n        ADD(1) }\n        MARK\n"
-     "        if (strip == kStrips - 1) mbar_arrive(&s.a_free"),
-    ("        if constexpr (MEL_TC) {\n          // The strip's share",
-     "        ADD(2)\n        { MARK\n        if constexpr (MEL_TC) {\n          // The strip's share"),
+     "        if (last) mbar_arrive(&s.a_free"),
+    ("        if constexpr (T::kMelTc) {\n          // The strip's mel planes",
+     "        ADD(2)\n        { MARK\n        if constexpr (T::kMelTc) {\n"
+     "          // The strip's mel planes"),
     ("          consumers_sync();  // the next strip overwrites the power\n        }\n      }\n",
      "          consumers_sync();  // the next strip overwrites the power\n        }\n"
      "        ADD(3) }\n      }\n      MARK\n"),
@@ -69,6 +76,8 @@ CLOCKS = [
      "    if (tid == 0) atomicAdd(&g_clocks[7], (unsigned long long)(clock64() - _start));\n"),
 ]
 CLUSTER1 = [("constexpr int kCluster = 2;", "constexpr int kCluster = 1;")]
+CLUSTER4 = [("constexpr int kCluster = 2;", "constexpr int kCluster = 4;")]  # built for K4 only
+KERNELS = (("mfcc_base", "K1"), ("mfcc_v3", "K2"), ("mfcc_v2", "K3"), ("mfcc_frames", "K4"))
 READ_CLOCKS = """
 extern "C" void streamz_read_clocks(unsigned long long* h) {
   cudaMemcpyFromSymbol(h, streamz_tc::g_clocks, sizeof(unsigned long long) * 8);
@@ -106,13 +115,15 @@ def main() -> int:
 
     card = bench.card_line()
     work = Path(tempfile.mkdtemp(prefix="streamz_tc_profile_"))
-    variants = {"shipped": [], "clocks": CLOCKS, "cluster1": CLUSTER1}
+    variants = {"shipped": [], "clocks": CLOCKS, "cluster1": CLUSTER1, "cluster4": CLUSTER4}
     procs = {}
     for name, edits in variants.items():
         d = work / name
         d.mkdir()
         (d / "mfcc_tc.cuh").write_text(edited(edits))
-        for src in ("mfcc_v3", "mfcc_v2"):
+        for src, _ in KERNELS:
+            if name == "cluster4" and src != "mfcc_frames":
+                continue
             body = (CSRC / f"{src}.cu").read_text()
             (d / f"{src}.cu").write_text(body + (READ_CLOCKS if name == "clocks" else ""))
             cmd = [_cuda_build.nvcc(), *_cuda_build.NVCC_FLAGS, f"-I{d}", "-o",
@@ -131,12 +142,18 @@ def main() -> int:
     out = torch.empty((SHAPE[0], SHAPE[1] // 400 - 1, 20), device=dev)
     report = {"card": card, "shape": list(SHAPE)}
     print(f"device: {torch.cuda.get_device_name(0)} | {card}")
-    for src, kid in (("mfcc_v3", "K2"), ("mfcc_v2", "K3")):
-        want = mk.mfcc_base_bf16x3_plain(pcm, src == "mfcc_v3")
+    plain = {"K1": lambda x: mk.mfcc_base_bf16x3_plain(x, True, tail_fold=True),
+             "K2": lambda x: mk.mfcc_base_bf16x3_plain(x, True),
+             "K3": lambda x: mk.mfcc_base_bf16x3_plain(x, False),
+             "K4": mk.mfcc_base_frames_plain}
+    for src, kid in KERNELS:
+        want = plain[kid](pcm)
         consts = mk._device_constants(dev, src)
         entry, n_consts = mk._ENTRIES[src]
         times = {}
         for name in variants:
+            if not (work / name / f"lib{src}.so").exists():
+                continue
             lib = ctypes.CDLL(str(work / name / f"lib{src}.so"))
             fn = getattr(lib, entry)
             p, i64 = ctypes.c_void_p, ctypes.c_longlong
@@ -165,9 +182,13 @@ def main() -> int:
         shares["the rest (loop, setup)"] = 1.0 - sum(shares.values())
         report[kid] = {"ms": times["shipped"], "clocks_ms": times["clocks"],
                        "cluster1_ms": times["cluster1"], "shares": shares}
+        four = ""
+        if "cluster4" in times:
+            report[kid]["cluster4_ms"] = times["cluster4"]
+            four = f"; with clusters of four {times['cluster4']:.4f} ms"
         print(f"[{kid}] [{SHAPE[0]}, {SHAPE[1]}]: {times['shipped']:.4f} ms; with the clock "
               f"marks {times['clocks']:.4f} ms; with clusters of one CTA (no multicast) "
-              f"{times['cluster1']:.4f} ms | {card}")
+              f"{times['cluster1']:.4f} ms{four} | {card}")
         print(f"[{kid}] the consumers' cycles, summed over the CTAs: " + ", ".join(
             f"{ph} {v:.1%}" for ph, v in shares.items()) + f" | {card}")
     out_dir = HERE / "chiprun_out"

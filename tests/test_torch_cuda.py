@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from streamz_tpu_torch.dsp import mfcc, mfcc_kernel
+from streamz_tpu_torch.dsp import mfcc_kernel
 from streamz_tpu_torch.dsp.features import FeatureExtractor
 
 # The launcher's edge shapes: (129, 1600) and (513, 800) give rows = 516
@@ -32,15 +32,15 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T", SHAPES)
 def test_k1_kernel_matches_plain_on_card(cuda_device, B, T):
-    """FP32 FMA in another summation order than cuBLAS: 1e-3 on the base
-    MFCCs (the frontend's golden gate).  One launch when there is a
-    window, none otherwise."""
+    """bf16x3 with v4's tail fold, in another summation order than the plain
+    version's f32 matmuls: 1e-3 on the base MFCCs (the frontend's golden
+    gate).  One launch when there is a window, none otherwise."""
     rng = np.random.default_rng(B * 1000003 + T)
     pcm = torch.from_numpy(rng.normal(0, 0.1, (B, T)).astype(np.float32)).to(cuda_device)
     before = mfcc_kernel.mfcc_base_v4.launches
     got = mfcc_kernel.mfcc_base_v4(pcm)
     torch.cuda.synchronize()
-    want = mfcc.mfcc_base(pcm)
+    want = mfcc_kernel.mfcc_base_bf16x3_plain(pcm, True, tail_fold=True)
     assert got.shape == want.shape
     assert mfcc_kernel.mfcc_base_v4.launches == before + int(T // 400 >= 2)
     if got.numel():
@@ -61,8 +61,8 @@ def test_k1_rejects_what_it_cannot_take(cuda_device):
 @pytest.mark.cuda
 def test_auto_frontend_on_card_matches_cpu(cuda_device):
     """Ragged clips through FeatureExtractor('auto'): the measured winner
-    (K1 or K2) on the card vs the plain formulation on the CPU, within the
-    1e-3 feature gate."""
+    (K1 or K2) on the card vs the f32 plain formulation on the CPU, within
+    the 1e-3 feature gate."""
     rng = np.random.default_rng(1)
     clips = [rng.normal(0, 3000, n).astype(np.int16) for n in (700, 9000, 44100, 441000)]
     extractor = FeatureExtractor("auto", device=cuda_device)
@@ -437,8 +437,9 @@ def test_discovery_step_never_waits_on_the_host(cuda_device):
 
 # ---------------------------------------------------------------------------
 # K2 (mfcc_v3.cu), K3 (mfcc_v2.cu) and K4 (mfcc_frames.cu) against their
-# plain versions, the backends through FeatureExtractor, the 'auto' probe,
-# and K7 (forward_probs.cu) against model.forward.
+# plain versions, K1-K4 at their tile's edges, the backends through
+# FeatureExtractor, the 'auto' probe, and K7 (forward_probs.cu) against
+# model.forward.
 # ---------------------------------------------------------------------------
 
 from streamz_tpu_torch.dsp import features  # noqa: E402
@@ -446,6 +447,7 @@ from streamz_tpu_torch.nn import model  # noqa: E402
 from streamz_tpu_torch.nn.forward_kernel import forward_probs_k7  # noqa: E402
 
 _MFCC_PLAIN = {
+    "K1": lambda pcm: mfcc_kernel.mfcc_base_bf16x3_plain(pcm, True, tail_fold=True),
     "K2": lambda pcm: mfcc_kernel.mfcc_base_bf16x3_plain(pcm, True),
     "K3": lambda pcm: mfcc_kernel.mfcc_base_bf16x3_plain(pcm, False),
     "K4": mfcc_kernel.mfcc_base_frames_plain,
@@ -456,9 +458,9 @@ _MFCC_PLAIN = {
 @pytest.mark.parametrize("kid", ["K2", "K3", "K4"])
 @pytest.mark.parametrize("B,T", SHAPES)
 def test_mfcc_kernels_match_plain_on_card(cuda_device, kid, B, T):
-    """bf16x3 (K2, K3) or FP32 (K4) in another summation order than the
-    plain version's f32 matmuls: 1e-3 on the base MFCCs.  One launch when
-    there is a window, none otherwise."""
+    """bf16x3 in another summation order than the plain version's f32
+    matmuls: 1e-3 on the base MFCCs.  One launch when there is a window,
+    none otherwise."""
     wrapper = mfcc_kernel.WRAPPERS[kid]
     rng = np.random.default_rng(B * 1000003 + T + 7)
     pcm = torch.from_numpy(rng.normal(0, 0.1, (B, T)).astype(np.float32)).to(cuda_device)
@@ -472,8 +474,9 @@ def test_mfcc_kernels_match_plain_on_card(cuda_device, kid, B, T):
         assert float((got - want).abs().max()) <= 1e-3
 
 
-# The edges of K2's and K3's tile (mfcc_tc.cuh): 64 block rows, 63 windows a
-# tile, tiles walked in pairs by clusters of two CTAs.  (B, T, offset):
+# The edges of the tile of K1-K4 (mfcc_tc.cuh): 64 block rows, 63 windows a
+# tile, tiles walked in pairs by clusters of two CTAs (K4: row 64 of its
+# planes, the zero row its shifted descriptor reads).  (B, T, offset):
 # fewer rows than one tile; B * nb = 127 (two whole tiles), 126 and 128
 # around it, 129 (one past two tiles of 64 rows); 190 and 191 (three tiles:
 # a cluster with one CTA idle, and four); clip boundaries inside a tile
@@ -491,11 +494,11 @@ def _offset_pcm(B, T, offset, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kid", ["K2", "K3"])
+@pytest.mark.parametrize("kid", ["K1", "K2", "K3", "K4"])
 @pytest.mark.parametrize("B,T,offset", TC_EDGES)
 def test_tc_tile_edges_match_plain_on_card(cuda_device, kid, B, T, offset):
-    """K2 and K3 at shapes that cross the tile's edges: 1e-3 on the base
-    MFCCs against the plain bf16x3 version, one launch, finite."""
+    """K1-K4 at shapes that cross the tile's edges: 1e-3 on the base MFCCs
+    against the plain bf16x3 version, one launch, finite."""
     wrapper = mfcc_kernel.WRAPPERS[kid]
     pcm = _offset_pcm(B, T, offset, B * 7919 + T, cuda_device)
     assert pcm.is_contiguous() and (pcm.data_ptr() % 16 != 0) == bool(offset)
@@ -510,7 +513,7 @@ def test_tc_tile_edges_match_plain_on_card(cuda_device, kid, B, T, offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kid", ["K2", "K3"])
+@pytest.mark.parametrize("kid", ["K1", "K2", "K3", "K4"])
 def test_tc_tile_two_launches_give_the_same_bits(cuda_device, kid):
     """No atomics and a fixed summation order: the same bits twice, over
     many tile pairs and an unaligned base."""
@@ -527,9 +530,9 @@ def test_tc_tile_two_launches_give_the_same_bits(cuda_device, kid):
 @pytest.mark.parametrize("kid", ["K1", "K2", "K3", "K4"])
 def test_mfcc_kernels_on_silence_and_odd_lengths(cuda_device, kid):
     """A zero clip hits the log floor everywhere; a length that is not a
-    multiple of 4 takes the unaligned copy path of K2 and K3."""
+    multiple of 4 takes the tile's unaligned copy path."""
     wrapper = mfcc_kernel.WRAPPERS[kid]
-    plain = _MFCC_PLAIN.get(kid, mfcc.mfcc_base)
+    plain = _MFCC_PLAIN[kid]
     pcm = torch.zeros((3, 8001), device=cuda_device)
     pcm[1] = torch.from_numpy(
         np.random.default_rng(11).normal(0, 0.1, 8001).astype(np.float32))

@@ -49,12 +49,14 @@ def _pcm(shape, seed):
 # Each plain version against its TPU kernel in interpret mode.
 # ---------------------------------------------------------------------------
 
-# (port plain version, JAX kernel, tolerance).  Measured on seeded noise:
-# bf16x3 vs bf16x3 (the same bf16 products summed in another order) about
-# 1e-5 and 3e-5, well inside 1e-4; K4's plain version is f32 against the
-# TPU kernel's bf16x3 DFT, about 5e-5, held to the 1e-3 gate as K1 is.
+# (port plain version, JAX kernel, tolerance).  Every plain version computes
+# its TPU kernel's bf16x3 products (K1 with v4's tail fold, K4 over the
+# 800-tap frame basis) and sums them in another order: about 1e-5 to 3e-5
+# on seeded noise, well inside 1e-4.
 PLAIN_VS_TPU = {
-    "K4": (mfcc_kernel.mfcc_base_frames_plain, pallas_mfcc.mfcc_base_pallas, 1e-3),
+    "K1": (lambda x: mfcc_kernel.mfcc_base_bf16x3_plain(x, True, tail_fold=True),
+           pallas_mfcc.mfcc_base_pallas_v4, 1e-4),
+    "K4": (mfcc_kernel.mfcc_base_frames_plain, pallas_mfcc.mfcc_base_pallas, 1e-4),
     "K3": (lambda x: mfcc_kernel.mfcc_base_bf16x3_plain(x, False),
            pallas_mfcc.mfcc_base_pallas_v2, 1e-4),
     "K2": (lambda x: mfcc_kernel.mfcc_base_bf16x3_plain(x, True),
@@ -95,8 +97,8 @@ def test_bf16_split_matches_the_tpu_kernels():
 
 
 def test_kernel_constants_layouts():
-    """K4's [800, 896] basis groups the full-window DFT as K1's groups the
-    block DFT; K2's dense mel planes split the filterbank exactly."""
+    """K4's [800, 896] basis groups the full-window DFT as ``basis`` groups
+    the block DFT; K2's dense mel planes split the filterbank exactly."""
     c = mfcc_kernel.kernel_constants()
     dft = pallas_mfcc._kernel_constants()
     full = (dft[0].astype(np.float32) + dft[1].astype(np.float32))  # hi + lo
@@ -125,6 +127,15 @@ def _unswizzle32(blocks):
     return out
 
 
+def _unpermute_stages(stages, steps):
+    """[7, steps, 4096] ring stages -> the (hi, lo) uint16 planes
+    [16 steps, 896] they were laid out from (the inverse of
+    ``tc_basis_stages``)."""
+    s = _unswizzle32(stages.reshape(7, steps, 2, 128, 2, 8))
+    return [s[:, :, plane].transpose(1, 3, 4, 0, 2).reshape(16 * steps, 896)
+            for plane in range(2)]
+
+
 def test_tc_stage_layouts_unpermute_to_the_split_constants():
     """K2's and K3's ring stages, un-permuted from wgmma's swizzled K-major
     blocks, are ``basis`` and ``mel_dense`` split into bf16 hi and lo, bit
@@ -134,10 +145,8 @@ def test_tc_stage_layouts_unpermute_to_the_split_constants():
     c = mfcc_kernel.kernel_constants()
     stages = c["basis_tc"]
     assert stages.shape == (7, 25, 4096) and stages.dtype == np.uint16
-    # [strip, step, plane, n, k8, kk] -> plane [k = (step, k8, kk), col = (strip, n)]
-    s = _unswizzle32(stages.reshape(7, 25, 2, 128, 2, 8))
-    for plane, want in zip(range(2), mfcc_kernel.bf16_split(torch.from_numpy(c["basis"]))):
-        got = s[:, :, plane].transpose(1, 3, 4, 0, 2).reshape(400, 896)
+    for got, want in zip(_unpermute_stages(stages, 25),
+                         mfcc_kernel.bf16_split(torch.from_numpy(c["basis"]))):
         np.testing.assert_array_equal(got, _bits(want))
     mel = c["mel_tc"]
     assert mel.shape == (7, 4096) and mel.dtype == np.uint16
@@ -146,6 +155,39 @@ def test_tc_stage_layouts_unpermute_to_the_split_constants():
     for plane, want in zip(range(2), mfcc_kernel.bf16_split(torch.from_numpy(c["mel_dense"]))):
         got = m[:, plane].transpose(0, 1, 3, 4, 2).reshape(448, 32)
         np.testing.assert_array_equal(got, _bits(want))
+
+
+def test_frame_stages_unpermute_to_the_tpu_kernels_split_basis():
+    """K4's ring stages, un-permuted, are the TPU kernel's own bf16 hi and
+    lo planes of the 800-tap basis (``_kernel_constants``: cos bins at
+    columns 0..400, -sin at 512..912), bit for bit; bins 401..447 are zero."""
+    c = mfcc_kernel.kernel_constants()
+    stages = c["frame_basis_tc"]
+    assert stages.shape == (7, 50, 4096) and stages.dtype == np.uint16
+    dft_hi, dft_lo = pallas_mfcc._kernel_constants()[:2]
+    for got, want in zip(_unpermute_stages(stages, 50), (dft_hi, dft_lo)):
+        want = np.asarray(want).view(np.uint16)
+        grouped = got.reshape(800, 7, 2, 64)
+        cos = grouped[:, :, 0].reshape(800, 448)
+        sin = grouped[:, :, 1].reshape(800, 448)
+        np.testing.assert_array_equal(cos[:, :401], want[:, :401])
+        np.testing.assert_array_equal(sin[:, :401], want[:, 512:913])
+        assert not cos[:, 401:].any() and not sin[:, 401:].any()
+
+
+def test_k1_mel_stages_read_as_the_tpu_kernels_doubled_tail():
+    """K1's mel stages are K2's, with strip 6 (bins 384..447) read twice,
+    under the tail's re^2 and im^2 planes.  Un-permuted, strips 0..5 and
+    strip 6 stacked twice are the TPU kernel v4's split mel rows 0..511
+    (``_kernel4_constants``, rows 384..400 doubled at 448..464), bit for bit."""
+    c = mfcc_kernel.kernel_constants()
+    m = _unswizzle32(c["mel_tc"].reshape(7, 2, 4, 32, 2, 8))
+    _, _, mel_cat, mel_hi, _ = pallas_mfcc._kernel4_constants()
+    mel_lo = mel_cat[:, pallas_mfcc._CH_PAD:]
+    for plane, want in zip(range(2), (mel_hi, mel_lo)):
+        got = m[:, plane].transpose(0, 1, 3, 4, 2).reshape(448, 32)
+        read = np.concatenate([got, got[384:]])  # strip 6 a second time
+        np.testing.assert_array_equal(read, np.asarray(want).view(np.uint16)[:, :32])
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +247,12 @@ def test_every_kernel_wrapper_short_clips(kid, T):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("kid", ["K2", "K3", "K4"])
+@pytest.mark.parametrize("kid", ["K1", "K2", "K3", "K4"])
 @pytest.mark.parametrize("B,T", TAIL_SHAPES)
 def test_every_kernel_wrapper_tail_shapes(kid, B, T):
     """The tail shapes through each wrapper's CPU path against the f32 plain
-    formulation: bf16x3 or the 800-tap DFT against f32, the 1e-3 gate."""
+    formulation: bf16x3 (K4 over the 800-tap DFT) against f32, the 1e-3
+    gate."""
     pcm = torch.from_numpy(_pcm((B, T), 6))
     got = mfcc_kernel.WRAPPERS[kid](pcm)
     want = mfcc.mfcc_base(pcm)

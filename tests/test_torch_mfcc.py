@@ -1,10 +1,11 @@
 """The port's MFCC frontend (streamz_tpu_torch.dsp) held against the JAX package.
 
 Inputs are made with numpy from a seed and handed to both packages.  Each
-tolerance is stated where it is used.  The CUDA kernel itself cannot run
+tolerance is stated where it is used.  The CUDA kernel K1 itself cannot run
 here; its tiling (the layout built by ``mfcc_kernel.kernel_constants``, the
-128-row tiles with one recomputed halo row, the sparse mel ranges and the
-window validity rule) is emulated in numpy and held to the plain version,
+64-row tiles at a stride of 63 with the halo row, the 7 strips of 64 bins,
+the parity combine, the bf16x3 products, the tail fold of strip 6 and the
+window validity rule) is emulated in numpy and held to its plain version,
 and the kernel is held to the plain version on the card by
 ``tests/test_torch_cuda.py`` and by ``chip_smoke.py``.
 """
@@ -56,50 +57,63 @@ def test_plain_base_matches_k1_interpret(B, T):
     np.testing.assert_allclose(got, want, atol=1e-3)
 
 
+def _split64(a) -> list:
+    """``bf16_split`` of an f32 array, as float64 planes (their products are
+    exact in float64)."""
+    planes = mfcc_kernel.bf16_split(torch.from_numpy(np.asarray(a, np.float32)))
+    return [p.float().numpy().astype(np.float64) for p in planes]
+
+
 def _emulate_kernel(pcm: np.ndarray) -> np.ndarray:
-    """numpy model of csrc/mfcc_base.cu's tiling, in float64."""
+    """numpy model of K1's tiling (csrc/mfcc_base.cu on mfcc_tc.cuh): tiles
+    of 64 block rows at a stride of 63 (the last row the halo), 7 strips of
+    64 bins (cos | -sin), the bf16x3 DFT and mel products, the parity
+    combine, strip 6's re^2 and im^2 split apart (the tail fold), each
+    window written by one tile; sums in float64, splits of f32 values."""
     c = mfcc_kernel.kernel_constants()
+    dh, dl = _split64(c["basis"])
+    mh, ml = _split64(c["mel_dense"])
     B, T = pcm.shape
     nb = T // 400
     R = B * nb
     out = np.full((B, max(nb - 1, 0), 20), np.nan)
     sign = np.where(np.arange(64) % 2 == 1, -1.0, 1.0)
-    flat = pcm[:, : nb * 400].reshape(R, 400).astype(np.float64)
-    for r0 in range(0, R - 1, 127):
-        rows = np.arange(r0, r0 + 128)
-        x = np.zeros((128, 400))
+    flat = pcm[:, : nb * 400].reshape(R, 400)
+    for r0 in range(0, R - 1, 63):
+        rows = np.arange(r0, r0 + 64)
+        x = np.zeros((64, 400), np.float32)
         x[rows < R] = flat[rows[rows < R]]
-        mel = np.zeros((128, 26))
-        for g in range(7):
-            p = x @ c["basis"][:, g * 128:(g + 1) * 128].astype(np.float64)
+        xh, xl = _split64(x)
+        mel = np.zeros((64, 32))
+        for s in range(7):
+            cols = slice(s * 128, (s + 1) * 128)
+            p = xh @ dh[:, cols] + xh @ dl[:, cols] + xl @ dh[:, cols]
             nxt = np.vstack([p[1:], np.zeros((1, 128))])
-            re = p[:, :64] + sign * nxt[:, :64]
-            im = p[:, 64:] + sign * nxt[:, 64:]
-            pw = re * re + im * im
-            for m in range(26):
-                lo = max(c["mel_lo"][m], g * 64)
-                hi = min(c["mel_hi"][m], g * 64 + 64)
-                if hi > lo:
-                    w = c["fbw"][c["mel_off"][m] + lo - c["mel_lo"][m]:
-                                 c["mel_off"][m] + hi - c["mel_lo"][m]]
-                    mel[:, m] += pw[:, lo - g * 64:hi - g * 64] @ w
-        o = np.log(np.maximum(mel, 1e-12)) @ c["dct"].T.astype(np.float64)
-        for w in range(127):
+            re = (p[:, :64] + sign * nxt[:, :64]).astype(np.float32)
+            im = (p[:, 64:] + sign * nxt[:, 64:]).astype(np.float32)
+            bins = slice(s * 64, (s + 1) * 64)
+            for pw in ([re * re, im * im] if s == 6 else [re * re + im * im]):
+                ph, pl = _split64(pw)
+                mel += ph @ mh[bins] + ph @ ml[bins] + pl @ mh[bins]
+        o = np.log(np.maximum(mel[:, :26], 1e-12)) @ c["dct"].T.astype(np.float64)
+        for w in range(63):
             r = r0 + w
             if r < R and r % nb < nb - 1:
+                assert np.isnan(out[r // nb, r % nb]).all(), "a window written twice"
                 out[r // nb, r % nb] = o[w]
     return out
 
 
 @pytest.mark.parametrize("B,T", [(1, 800), (1, 2000), (129, 1600), (3, 60000)])
 def test_kernel_tiling_emulation_matches_plain(B, T):
-    """Every window is written exactly once by the kernel's tiling, and the
-    padded basis, the parity combine and the sparse mel reproduce the plain
-    version (float64 emulation vs f32 plain: summation order, 1e-4)."""
+    """Every window is written exactly once by K1's tiling, and the padded
+    basis, the parity combine, the bf16x3 products and the tail fold
+    reproduce K1's plain version (float64 sums vs f32: 1e-4)."""
     pcm = _pcm((B, T), 4)
     got = _emulate_kernel(pcm)
     assert not np.isnan(got).any()
-    want = tmfcc.mfcc_base(torch.from_numpy(pcm)).numpy()
+    want = mfcc_kernel.mfcc_base_bf16x3_plain(
+        torch.from_numpy(pcm), True, tail_fold=True).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 

@@ -64,13 +64,18 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_auto_frontend_on_cpu_uses_plain_path():
-    from streamz_tpu_torch.dsp import mfcc, mfcc_kernel
+    """'auto' on the CPU is the plain formulation; K1's wrapper on a CPU
+    tensor runs K1's plain version and counts no launch."""
+    from streamz_tpu_torch.dsp import features, mfcc, mfcc_kernel
 
+    assert features.FeatureExtractor(device="cpu").resolved() == "plain"
+    assert features.frontend_core("plain") is mfcc.mfcc_features
     pcm = torch.from_numpy(
         np.random.default_rng(0).normal(0, 0.1, (2, 4000)).astype(np.float32))
     before = mfcc_kernel.mfcc_base_v4.launches
     np.testing.assert_array_equal(
-        mfcc_kernel.mfcc_base_v4(pcm).numpy(), mfcc.mfcc_base(pcm).numpy())
+        mfcc_kernel.mfcc_base_v4(pcm).numpy(),
+        mfcc_kernel.mfcc_base_bf16x3_plain(pcm, True, tail_fold=True).numpy())
     assert mfcc_kernel.mfcc_base_v4.launches == before
 
 
