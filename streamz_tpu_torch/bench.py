@@ -16,7 +16,9 @@ calls).  ``vs_baseline`` divides it by the measured CPU spec: the numpy
 golden frontend (:mod:`streamz_tpu_torch.dsp.mfcc_ref`) and the reference's
 per-window forward and vote sums (``streamz-rs/src/lib.rs:880-891``,
 ``:1285-1303``).  ``fused_forward_windows_per_sec`` is the same pipeline
-with the fused forward K7 in place of ``forward``.  ``card`` is what
+with the fused forward K7 in place of ``forward``: the bf16 forward of its
+TPU kernel (each product's operands rounded to bf16, f32 sums), where
+``value`` runs the FP32 ``forward``.  ``card`` is what
 ``nvidia-smi --query-gpu=name,power.limit`` reports.
 
 Left out, as TPU-only: the bf16 peak table, ``mfu``/``hw_util``, the
@@ -143,8 +145,9 @@ def bench_frontends(B: int = 32, seconds: float = 10.0, iters: int = 20) -> dict
 
 
 def bench_forward(net: SpeakerNet, x: torch.Tensor, iters: int = 20) -> dict:
-    """Milliseconds per call of the plain ``forward`` and of K7 on the
-    window batch ``x`` [R, 60] on the card."""
+    """Milliseconds per call of the plain FP32 ``forward`` and of K7 (the
+    bf16 forward, through ``forward_probs_k7``) on the window batch ``x``
+    [R, 60] on the card."""
     ns = net.num_speakers
     with torch.inference_mode():
         return {

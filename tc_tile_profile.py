@@ -121,6 +121,7 @@ def main() -> int:
         d = work / name
         d.mkdir()
         (d / "mfcc_tc.cuh").write_text(edited(edits))
+        (d / "hopper.cuh").write_text((CSRC / "hopper.cuh").read_text())
         for src, _ in KERNELS:
             if name == "cluster4" and src != "mfcc_frames":
                 continue

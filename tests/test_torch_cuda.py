@@ -439,12 +439,14 @@ def test_discovery_step_never_waits_on_the_host(cuda_device):
 # K2 (mfcc_v3.cu), K3 (mfcc_v2.cu) and K4 (mfcc_frames.cu) against their
 # plain versions, K1-K4 at their tile's edges, the backends through
 # FeatureExtractor, the 'auto' probe, and K7 (forward_probs.cu) against
-# model.forward.
+# its plain version and model.forward.
 # ---------------------------------------------------------------------------
 
+from chip_smoke import k7_exact_inputs  # noqa: E402
 from streamz_tpu_torch.dsp import features  # noqa: E402
 from streamz_tpu_torch.nn import model  # noqa: E402
-from streamz_tpu_torch.nn.forward_kernel import forward_probs_k7  # noqa: E402
+from streamz_tpu_torch.nn.forward_kernel import (  # noqa: E402
+    forward_probs_k7, forward_probs_plain, packed_weights_k7, packed_weights_plain)
 
 _MFCC_PLAIN = {
     "K1": lambda pcm: mfcc_kernel.mfcc_base_bf16x3_plain(pcm, True, tail_fold=True),
@@ -574,28 +576,121 @@ def test_auto_probe_on_card(cuda_device, tmp_path, monkeypatch):
     autotune.reset("frontend")
 
 
-def _k7_inputs(rows, capacity, device, seed=0):
-    params = _params(capacity, device, seed=seed)
+# K7 runs the TPU kernel's bf16 products.  Against its plain version
+# (forward_probs_plain) on inputs whose layer-1 and layer-2 sums are exact
+# in f32 in any order: K7_TOL on every window.  On real inputs: K7_TOL a
+# window, K7_FLIP_TOL for the few windows (at most K7_FLIP_SHARE) where an
+# h1 or h2 value next to a bf16 rounding midpoint rounds the other way in
+# the other f32 summation order (tests/test_torch_forward.py).  Against the
+# FP32 forward: K7_F32_TOL, and a label may change only where the FP32
+# top-two gap is under it.
+K7_TOL, K7_FLIP_TOL, K7_FLIP_SHARE, K7_F32_TOL = 2e-4, 1e-2, 0.01, 0.1
+# (F, H1, H2, capacity, rows): capacities past one chunk, the tile's edges,
+# and widths whose padding the kernel fills (60, 100, 52), (12, 36, 20) or
+# whose activations live in device memory (60, 4096, 2048).
+K7_SHAPES = [(60, 512, 256, 128, 1), (60, 512, 256, 128, 63), (60, 512, 256, 128, 64),
+             (60, 512, 256, 128, 65), (60, 512, 256, 128, 70464), (60, 512, 256, 256, 4096),
+             (60, 512, 256, 4096, 700), (60, 100, 52, 128, 1000), (60, 4096, 2048, 128, 300),
+             (12, 36, 20, 384, 129)]
+
+
+def _k7_params(F, H1, H2, capacity, device, seed=0):
+    """Uniform(-0.5, 0.5) weights and biases (nonzero, unlike init_params')."""
+    rng = np.random.default_rng(seed)
+    shapes = {"w1": (F, H1), "b1": (H1,), "w2": (H1, H2), "b2": (H2,),
+              "w3": (H2, capacity), "b3": (capacity,)}
+    return {k: torch.from_numpy(rng.uniform(-0.5, 0.5, s).astype(np.float32)).to(device)
+            for k, s in shapes.items()}
+
+
+def _k7_inputs(rows, capacity, device, seed=0, widths=(60, 512, 256)):
+    params = _k7_params(*widths, capacity, device, seed=seed)
     rng = np.random.default_rng(seed + 1)
-    x = torch.from_numpy(rng.normal(0, 1, (rows, 60)).astype(np.float32)).to(device)
+    x = torch.from_numpy(rng.normal(0, 1, (rows, widths[0])).astype(np.float32)).to(device)
     return params, x
+
+
+def _k7_check(params, x, ns):
+    """One K7 launch against its plain version and the FP32 forward."""
+    before = forward_probs_k7.launches
+    got = forward_probs_k7(params, x, ns)
+    torch.cuda.synchronize()
+    assert forward_probs_k7.launches == before + 1
+    want = forward_probs_plain(params, x, ns)
+    assert got.shape == want.shape == (x.shape[0], params["b3"].shape[0])
+    err = (got - want).abs().amax(dim=1)
+    assert float(err.max()) <= K7_FLIP_TOL
+    assert int((err > K7_TOL).sum()) <= max(1, int(K7_FLIP_SHARE * x.shape[0]))
+    assert bool((got[:, ns:] == 0.0).all())
+    f32 = model.forward(params, x, ns)
+    assert float((got - f32).abs().max()) <= K7_F32_TOL
+    if ns > 1:
+        top = f32[:, :ns].topk(2, dim=1).values
+        changed = got[:, :ns].argmax(dim=1) != f32[:, :ns].argmax(dim=1)
+        assert bool((top[changed, 0] - top[changed, 1] < K7_F32_TOL).all())
+    return got
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ns", [0, 1, 8, 128])
 @pytest.mark.parametrize("rows", [1, 700, 70464])
 def test_k7_matches_forward_on_card(cuda_device, ns, rows):
-    """FP32 FMA against cuBLAS's FP32 sums: 1e-5 on the probabilities; the
-    columns at or past ns exactly 0.0, also at ns = 0; one launch."""
+    """bf16 products on wgmma against the plain version's FP32 sums of the
+    same bf16 products, and against the FP32 forward; the columns at or
+    past ns exactly 0.0, also at ns = 0; one launch."""
     params, x = _k7_inputs(rows, 128, cuda_device, seed=rows)
-    before = forward_probs_k7.launches
-    got = forward_probs_k7(params, x, ns)
+    _k7_check(params, x, ns)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,H1,H2,capacity,rows", K7_SHAPES)
+def test_k7_shapes_on_card(cuda_device, F, H1, H2, capacity, rows):
+    """Sums exact in any order (chip_smoke.py's k7_exact_inputs): every
+    window within K7_TOL of the plain version, the inactive columns exactly
+    0.0, one launch a call."""
+    params, x = k7_exact_inputs(F, H1, H2, capacity, rows, cuda_device, seed=rows + capacity)
+    for ns in (0, 1, 5, capacity):
+        before = forward_probs_k7.launches
+        got = forward_probs_k7(params, x, ns)
+        torch.cuda.synchronize()
+        assert forward_probs_k7.launches == before + 1
+        want = forward_probs_plain(params, x, ns)
+        assert got.shape == want.shape == (rows, capacity)
+        assert float((got - want).abs().max()) <= K7_TOL
+        assert bool((got[:, ns:] == 0.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,H1,H2,capacity", [(60, 512, 256, 128), (60, 100, 52, 4096),
+                                              (60, 4096, 2048, 256), (12, 36, 20, 384)])
+def test_k7_packs_the_weights_as_its_torch_form(cuda_device, F, H1, H2, capacity):
+    """The pack kernel's bf16 layout equals packed_weights_plain bit for bit."""
+    params = _k7_params(F, H1, H2, capacity, cuda_device, seed=F + H1)
+    got = packed_weights_k7(params)
     torch.cuda.synchronize()
-    assert forward_probs_k7.launches == before + 1
-    want = model.forward(params, x, ns)
-    assert got.shape == want.shape == (rows, 128)
-    assert float((got - want).abs().max()) <= 1e-5
-    assert bool((got[:, ns:] == 0.0).all())
+    want = packed_weights_plain(params)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(60, 512, 256), (60, 4096, 2048)])
+def test_k7_two_launches_give_the_same_bits(cuda_device, widths):
+    params, x = _k7_inputs(3000, 256, cuda_device, seed=9, widths=widths)
+    first = forward_probs_k7(params, x, 200)
+    again = forward_probs_k7(params, x, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.cuda
+def test_k7_sees_an_in_place_update(cuda_device):
+    """K5 and K6 update the parameters in place: the next call packs the
+    updated w2, so it agrees with the plain version of the new weights."""
+    params, x = _k7_inputs(2000, 128, cuda_device, seed=11)
+    before = forward_probs_k7(params, x, 8)
+    params["w2"].mul_(-1.5)
+    after = _k7_check(params, x, 8)
+    assert float((after - before).abs().max()) > 0.1
 
 
 @pytest.mark.cuda

@@ -186,3 +186,23 @@ def test_training_entry_points_need_a_card_or_the_cpu(monkeypatch, tmp_path):
     with pytest.raises(ValueError):
         tk.corpus_grads_k5(params, torch.zeros((4, 60), device="meta"),
                            torch.zeros(4, dtype=torch.int32), torch.ones(4), 2)
+
+
+@pytest.mark.parametrize("script", ["tc_tile_profile.py", "k7_profile.py"])
+def test_profile_scripts_edit_the_sources_they_measure(script):
+    """The card's measurement scripts build copies of a kernel source with
+    text edits: each edit's anchor occurs once in today's source, and the
+    scripts, like the package, import no jax."""
+    import importlib.util
+
+    path = ROOT / script
+    assert not [m for m in _imported_names(path) if _forbidden(m)]
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if script == "tc_tile_profile.py":
+        edits = [mod.CLOCKS, mod.CLUSTER1, mod.CLUSTER4]
+    else:
+        edits = list(mod.VARIANTS.values()) + [mod.CLOCKS]
+    for e in edits:
+        assert mod.edited(e)
