@@ -43,9 +43,21 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    kernel's launch count is zeroed just before and read just after; the
    winner's and K6's must have moved, K5's must be its 500 steps, and the
    plain step (``_apply_step``) and the plain gather must not have run.
+   The run keeps the frontend's outputs on the card (``DeviceFeatureStore``),
+   and the discovery loop and finalize gather from it: its
+   ``host_pack_bytes`` must stay 0.
 5. ``--identify`` (``cli.main(["--identify", ...])``) of 64 held-out clips
    against the trained model, counts zeroed and read; prints how many clips
-   it gives their own speaker.
+   it gives their own speaker.  Then ``--eval`` of the same clips as the
+   target list, with the store (the targets pinned, ``host_pack_bytes`` 0)
+   and with ``STREAMZ_STORE_MAX_MB=0``: the same metrics dict; prints
+   accuracy, precision, recall, F1 and the ``eval`` phase's seconds (the
+   verbose per-file log goes to ``chiprun_out/chip_smoke_eval_*.log``).
+   ``--check-embeddings`` and ``--cluster-embeddings 8`` on the card print
+   what a ``--device cpu`` run prints.  Then the default run again on the
+   same corpus without the store and with it, each from key 0 in a fresh
+   directory: labels and ``model.npz`` arrays bit-identical to phase 4's;
+   prints the ``discovery`` phase's seconds of all three.
 6. The gated vote pipeline (``identify_speaker_list_batch``) on those clips;
    then K7 (bf16 products, as its TPU kernel) on their 70,464 windows
    (capacity 128, ``num_speakers`` 0, 1, 8 and 128, the trained and a fresh
@@ -71,6 +83,9 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
 8. The same bare run at a reduced size (12 clips of 1 s, 4 speakers) on the
    CPU (plain versions) and on the GPU (kernels): the same labels for every
    file up to the first whose decision margin is within 1e-3 of a change.
+   Then ``--profile traces`` on that reduced corpus on the card: the phase
+   report printed and a ``torch.profiler`` trace written that holds K6's
+   kernel.
 9. The bench twin, ``python -m streamz_tpu_torch.bench`` (``bench.run()``),
    once, counts zeroed and read (the winner's and K7's must move); its JSON
    line is printed.  Then time every kernel per launch with CUDA events
@@ -767,6 +782,7 @@ def main() -> int:
         for n_ in plain_calls:
             setattr(tk, n_, counted(n_))
         zero_counts()
+        drivers._key_counter[0] = 0
         t0 = time.perf_counter()
         try:
             rc, lines, run = run_cli([])
@@ -838,6 +854,98 @@ def main() -> int:
         unknown = sum(1 for v in verdicts.values() if ": speaker " not in v)
         print(f"[identify] {correct}/{len(query_paths)} held-out clips identified as "
               f"their own speaker, {unknown} unknown (trained model)")
+
+        mark("--eval")
+        # 5b. --eval of the held-out clips against the trained model, the
+        # store on (only the targets pinned) and off: the same metrics.
+        filelists.write_target_files(config.TARGET_FILE_LIST,
+                                     list(zip(query_paths, (int(s) for s in spk))))
+        evals = {}
+        for store_mb in ("4096", "0"):
+            os.environ["STREAMZ_STORE_MAX_MB"] = store_mb
+            zero_counts()
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stderr(log):
+                    rc, lines, ev = run_cli(["--eval"])
+            finally:
+                del os.environ["STREAMZ_STORE_MAX_MB"]
+            eval_wall_s = time.perf_counter() - t0
+            eval_launches = read_counts(f"--eval, store {store_mb} MB")
+            (HERE / "chiprun_out").mkdir(exist_ok=True)
+            (HERE / "chiprun_out" / f"chip_smoke_eval_{store_mb}.log").write_text(
+                log.getvalue())
+            if rc != 0 or "metrics" not in ev:
+                fail(f"--eval with STREAMZ_STORE_MAX_MB={store_mb} returned {rc}")
+            if eval_launches[win_kid] < 1:
+                fail(f"--eval never launched {win_kid}")
+            evals[store_mb] = (ev, eval_wall_s)
+        (on, on_s), (off, off_s) = evals["4096"], evals["0"]
+        m, st = on["metrics"], on["store_stats"]
+        print(f"[eval] {len(query_paths)} held-out clips, store on: accuracy "
+              f"{m['accuracy']:.4f}, precision {m['precision']:.4f}, recall "
+              f"{m['recall']:.4f}, F1 {m['f1']:.4f}; eval phase "
+              f"{on['phase_seconds']['eval']:.3f} s (store off "
+              f"{off['phase_seconds']['eval']:.3f} s), ingest+features+eval "
+              f"{on_s:.3f} s (off {off_s:.3f} s); store host_pack_bytes "
+              f"{st['host_pack_bytes']} (must be 0), {win_kid} launches "
+              f"{by_path['--eval, store 4096 MB'][win_kid]} | {card}")
+        if off["metrics"] != m or off["store_stats"] is not None:
+            fail(f"--eval metrics with the store {m} and without {off['metrics']}")
+        if st is None or st["host_pack_bytes"] != 0 or st["dropped_buckets"]:
+            fail(f"--eval store stats {st}: the targets must all be resident")
+        report["eval"] = {"metrics": m, "phase_s": on["phase_seconds"],
+                          "phase_s_store_off": off["phase_seconds"],
+                          "wall_s": on_s, "wall_s_store_off": off_s, "store_stats": st}
+
+        mark("inspection modes")
+        # 5c. --check-embeddings and --cluster-embeddings 8 on the card and
+        # on the CPU, on the trained model: the same lines.
+        for args in (["--check-embeddings"], ["--cluster-embeddings", str(N_SPEAKERS)]):
+            outs = [run_cli(args + dev_args)[:2] for dev_args in ([], ["--device", "cpu"])]
+            if outs[0] != outs[1] or outs[0][0] != 0 or len(outs[0][1]) < net.num_speakers:
+                fail(f"{' '.join(args)} on the card {outs[0]} and on the CPU {outs[1]}")
+            print(f"[inspect] {' '.join(args)}: rc 0, {len(outs[0][1])} lines, equal on the "
+                  f"card and on the CPU; last: {outs[0][1][-1]!r}")
+
+        mark("store in the default run")
+        # 5d. The default run on the same corpus without the store and with
+        # it again, each in a fresh directory from key 0 (as phase 4): the
+        # same labels and model.npz arrays, bit for bit, as phase 4's run.
+        ref_lists = Path(config.TRAIN_FILE_LIST).read_text()
+        ref_model = dict(np.load(config.MODEL_PATH))
+        discovery_s = {"store, phase 4": phases["discovery"]}
+        for label, store_mb in (("no store", "0"), ("store", "4096")):
+            sub = Path(work) / label.replace(" ", "_")
+            sub.mkdir()
+            os.chdir(sub)
+            write_corpus(train_pcm, spk, LABELLED_PER_SPEAKER, "train")
+            os.environ["STREAMZ_STORE_MAX_MB"] = store_mb
+            drivers._key_counter[0] = 0
+            try:
+                rc, _, rerun = run_cli([])
+            finally:
+                del os.environ["STREAMZ_STORE_MAX_MB"]
+            if rc != 0:
+                fail(f"the default run ({label}) returned {rc}")
+            model_ = dict(np.load(config.MODEL_PATH))
+            same = (Path(config.TRAIN_FILE_LIST).read_text() == ref_lists
+                    and model_.keys() == ref_model.keys()
+                    and all(np.array_equal(model_[k], ref_model[k]) for k in ref_model))
+            if not same or (rerun["store_stats"] is None) != (store_mb == "0"):
+                fail(f"the default run ({label}): labels or model.npz differ from phase 4's")
+            discovery_s[label] = rerun["phase_seconds"]["discovery"]
+            os.chdir(work)
+        st = run["store_stats"]
+        print("[store] default run, discovery phase: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in discovery_s.items()) + "; labels and model.npz "
+              f"bit-identical; phase 4's store host_pack_bytes {st['host_pack_bytes']} "
+              f"(must be 0) | {card}")
+        if st["host_pack_bytes"] != 0 or st["dropped_buckets"]:
+            fail(f"the default run's store stats {st}: every clip must be resident")
+        report["store_discovery_s"] = discovery_s
+        report["train_store_stats"] = st
 
         mark("votes")
         # 6. The vote pipeline on the same clips.
@@ -1066,6 +1174,27 @@ def main() -> int:
     if compared == 0:
         fail("the reduced run compared no label")
     report["cpu_vs_gpu_run"] = {"cpu": cl, "gpu": gl_, "compared": compared}
+
+    mark("--profile")
+    # 8b. --profile dir on the card: the reduced corpus's default run under
+    # torch.profiler; the trace must hold K6's kernel.
+    with tempfile.TemporaryDirectory(prefix="streamz_chip_smoke_profile_") as work:
+        os.chdir(work)
+        write_corpus(small_pcm, small_spk, 1, "small")
+        zero_counts()
+        rc, lines, _ = run_cli(["--profile", "traces"])
+        prof_launches = read_counts("--profile")
+        traces = sorted(Path("traces").glob("*.pt.trace.json"))
+        if rc != 0 or len(traces) != 1 or "Phase timing:" not in lines:
+            fail(f"--profile traces: rc {rc}, traces {traces}")
+        text = traces[0].read_text()
+        if "file_train_kernel" not in text or prof_launches["K6"] < 1:
+            fail("--profile's trace holds no K6 (file_train_kernel) launch")
+        phase_lines = lines[lines.index("Phase timing:"):][:8]
+        print(f"[profile] trace {traces[0].name}, {len(text) / 1e6:.1f} MB, "
+              f"{text.count('file_train_kernel')} mentions of file_train_kernel, K6 "
+              f"launches {prof_launches['K6']}; " + " | ".join(x.strip() for x in phase_lines))
+        os.chdir(HERE)
 
     mark("bench twin")
     # 9. The bench twin, once, as a user runs it; then timing with CUDA

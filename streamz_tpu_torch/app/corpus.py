@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from streamz_tpu_torch import config
+from streamz_tpu_torch.device import staged
 from streamz_tpu_torch.nn.model import SpeakerNet
 from streamz_tpu_torch.nn.train_kernels import PoolRows, corpus_step_k5
 
@@ -78,10 +79,10 @@ def train_corpus(
             if dropout > 0.0 else None)
     epoch_losses = []
     for _ in range(int(epochs)):
-        order[:n].copy_(_staged(rng.permutation(n).astype(np.int32), dev), non_blocking=True)
+        order[:n].copy_(staged(rng.permutation(n).astype(np.int32), dev), non_blocking=True)
         if keep is not None:
             drawn = rng.random((n, pool_x.shape[1]), dtype=np.float32) >= dropout
-            keep.copy_(_staged(drawn.view(np.uint8), dev), non_blocking=True)
+            keep.copy_(staged(drawn.view(np.uint8), dev), non_blocking=True)
         step_losses = []
         for s in range(steps):
             lo, real = s * batch_size, min(batch_size, n - s * batch_size)
@@ -92,10 +93,3 @@ def train_corpus(
     net.params = params
     return [float(v) for v in torch.stack(epoch_losses).tolist()] if epoch_losses else []
 
-
-def _staged(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """``a`` as a tensor to copy to ``dev``: pinned for a CUDA device, so the
-    copy does not block the host (the caching host allocator keeps the
-    buffer until the copy is done)."""
-    t = torch.from_numpy(a)
-    return t.pin_memory() if dev.type == "cuda" else t

@@ -21,6 +21,23 @@ The JAX package pads the files of one dispatch to the dispatch's largest
 bucket only to bound its compiles; the trainer draws the same bits for
 every pad size (the threefry counter layout, a stable argsort, masked
 padding rows), so the labels do not depend on it.
+
+Two knobs of the JAX loop have no counterpart, and need none on one card:
+``MAX_SCAN_FILES`` (``streamz_tpu/app/device_loop.py:56``) caps the files
+of one ``lax.scan`` dispatch to bound the compiled variants and the
+padding; here nothing is compiled per shape and each file is its own K6
+launch, queued without waiting, so there is no dispatch to cap.
+``_resolve_scan_backend`` (``:330``) measures the single-device scan
+against the SPMD one that shards a file's windows over a mesh; one device
+has no SPMD scan to choose.
+
+With the ingest stage's ``DeviceFeatureStore`` each file's windows are
+gathered on the device from the frontend's own output; a file the store
+misses is packed on the host and scattered in alone.  The gathered rows
+equal the host-packed ones bit for bit (the frontend zeroes every frame
+past a clip's window count), so labels, parameters and margins are those
+of the run without a store.  Without a store every file's windows go up in
+one upload.
 """
 
 from __future__ import annotations
@@ -31,6 +48,7 @@ import numpy as np
 import torch
 
 from streamz_tpu_torch import config
+from streamz_tpu_torch.dsp.mfcc import DeviceFeatureStore
 from streamz_tpu_torch.infer.embed import average_vectors
 from streamz_tpu_torch.nn import prng
 from streamz_tpu_torch.nn.drivers import _fresh_key
@@ -112,6 +130,19 @@ def _file_step(state, windows, n_valid, label, burn, threshold, lr, key,
     return sid, loss, emb, margin
 
 
+def _store_windows(store: DeviceFeatureStore, path: str, windows: np.ndarray,
+                   w_pad: int, dev: torch.device) -> torch.Tensor:
+    """A file's [w_pad, F] windows gathered from the store, or, on a miss,
+    packed on the host and scattered in (metered in ``store.stats``)."""
+    wins, missing = store.gather_partial([path], w_pad)
+    if missing:
+        pack = np.zeros((1, w_pad, windows.shape[1]), np.float32)
+        pack[0, : len(windows)] = windows
+        wins = store.scatter_rows(torch.zeros(pack.shape, device=dev),
+                                  pack, [0])
+    return wins[0]
+
+
 def run_incremental_device(
     net: SpeakerNet,
     train_files: List[Tuple[str, Optional[int]]],
@@ -124,6 +155,7 @@ def run_incremental_device(
     epochs: int,
     max_speakers: Optional[int],
     show_progress: bool = True,
+    device_store: Optional[DeviceFeatureStore] = None,
 ):
     """Run the loop over the files in list order on the net's device.
 
@@ -131,6 +163,8 @@ def run_incremental_device(
     margins)`` and mutates ``net`` and the labels in ``train_files`` as the
     JAX package's loop does.  ``margins[k]`` says how far processed file
     k's similarities lay from another label (+inf where none decided it).
+    ``device_store`` (path-keyed, built from this ``feature_map``) feeds
+    the files' windows on the device.
     """
     jobs = []  # (file index, path, label, windows)
     for i, (path, label) in enumerate(train_files):
@@ -177,19 +211,24 @@ def run_incremental_device(
     state = (params, ns, run_sum, run_cnt)
     max_sp_d = torch.tensor(max_sp, dtype=torch.int32, device=dev)
     keys = prng.fold_in(_fresh_key(device=dev), torch.arange(len(jobs), device=dev))
-    # Every file's windows in one upload: a copy from pageable host memory
-    # waits for the device, so a copy per file would wait on every file.
-    flat = torch.from_numpy(np.concatenate([w for _, _, _, w in jobs])).to(dev)
-    starts = np.cumsum([0] + [len(w) for _, _, _, w in jobs])
+    if device_store is None:
+        # Every file's windows in one upload: a copy from pageable host
+        # memory waits for the device, so a copy per file would wait on
+        # every file.
+        flat = torch.from_numpy(np.concatenate([w for _, _, _, w in jobs])).to(dev)
+        starts = np.cumsum([0] + [len(w) for _, _, _, w in jobs])
 
     outs = []
-    for k, (_, _, label, windows) in enumerate(
+    for k, (_, path, label, windows) in enumerate(
         progress(jobs, desc="incremental", enabled=show_progress)
     ):
         n = len(windows)
-        padded = torch.zeros((config.next_pow2(-(-n // batch_size)) * batch_size,
-                              windows.shape[1]), device=dev)
-        padded[:n] = flat[starts[k]:starts[k] + n]
+        w_pad = config.next_pow2(-(-n // batch_size)) * batch_size
+        if device_store is None:
+            padded = torch.zeros((w_pad, windows.shape[1]), device=dev)
+            padded[:n] = flat[starts[k]:starts[k] + n]
+        else:
+            padded = _store_windows(device_store, path, windows, w_pad, dev)
         burn = k < burn_in_limit
         outs.append(_file_step(
             state, padded, n,

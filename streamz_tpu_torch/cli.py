@@ -2,8 +2,10 @@
 
   python -m streamz_tpu_torch [--threshold <v>] [--burn-in-limit <n>]
                               [--max-speakers <n>] [--no-cache-wav]
+                              [--eval] [--eval-split <frac>]
+                              [--check-embeddings] [--cluster-embeddings <k>]
                               [--force] [--retrain] [--no-autotune]
-                              [--device cuda|cpu]
+                              [--profile [dir]] [--device cuda|cpu]
   python -m streamz_tpu_torch --identify <file>... [--threshold <v>]
                               [--no-autotune] [--device cuda|cpu]
 
@@ -15,35 +17,47 @@ over), runs the discovery loop over every file in list order, then writes
 ``model.npz``, the relabelled ``train_files.txt`` and ``target_files.txt``
 (``streamz-rs/src/main.rs:627-891``).
 
+``--eval`` scores ``model.npz`` on ``target_files.txt`` (or, without one,
+on the tail ``--eval-split`` fraction of the labelled training files):
+accuracy, precision, recall and F1 of the plain ``sim > threshold`` match
+(``src/main.rs:522-625``).  ``--check-embeddings`` prints the stored
+speakers' similarity stats (``src/main.rs:243-279``) and
+``--cluster-embeddings <k>`` runs cosine k-means over them.  ``--profile
+[dir]`` prints the seconds of each phase and, with a directory, writes a
+``torch.profiler`` trace there.
+
 ``--identify`` matches each clip against the speakers stored in
 ``model.npz`` with the adaptive cosine gate (``src/lib.rs:1634-1661``),
 printing one verdict line per clip.
 
-Both run on ``cuda`` unless ``--device cpu`` is given, and fail when CUDA
-is missing rather than falling back to the CPU.  On the card the frontend is
-the measured winner of K1 and K2 (``dsp/features.py``), probed at first use
-and cached per card; ``--no-autotune`` skips the probe, so a cold cache
-takes K1.  The other modes of the JAX
-package's CLI (``--eval``, ``--check-embeddings``, ``--cluster-embeddings``,
-``--encode``/``--decode``/``--checksum``, ``--serve``, ``--profile``, the
-multi-host flags) are not yet ported: they print so and return 2.
+Every mode runs on ``cuda`` unless ``--device cpu`` is given, and fails
+when CUDA is missing rather than falling back to the CPU.  On the card the
+frontend is the measured winner of K1 and K2 (``dsp/features.py``), probed
+at first use and cached per card; ``--no-autotune`` skips the probe, so a
+cold cache takes K1.  The frontend's outputs stay on the card in a
+``DeviceFeatureStore`` for the discovery loop, ``--eval``, ``--identify``
+and finalize; ``STREAMZ_STORE_MAX_MB`` caps it (default 4096, 0 or less
+turns it off).  The other modes of the JAX package's CLI
+(``--encode``/``--decode``/``--checksum``, ``--serve``, the multi-host
+flags) are not yet ported: they print so and return 2.
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import sys
-import time
-from typing import Dict, List, Optional
+from typing import List, Optional, Set
 
 import numpy as np
-import torch
 
 from streamz_tpu_torch import config
 from streamz_tpu_torch.app import corpus
+from streamz_tpu_torch.app.embedquality import print_embedding_quality
+from streamz_tpu_torch.app.evaluate import evaluate, resolve_eval_targets
 from streamz_tpu_torch.app.incremental import finalize_and_save, run_incremental
 from streamz_tpu_torch.dsp.features import FeatureExtractor
+from streamz_tpu_torch.dsp.mfcc import DeviceFeatureStore
+from streamz_tpu_torch.infer.cluster import cluster_embeddings
 from streamz_tpu_torch.infer.cosine import (
     compute_speaker_embeddings,
     cosine_matrix_many,
@@ -54,29 +68,22 @@ from streamz_tpu_torch.io import audio
 from streamz_tpu_torch.io import filelists as fl
 from streamz_tpu_torch.nn import checkpoint
 from streamz_tpu_torch.nn.model import SpeakerNet
+from streamz_tpu_torch.runtime.profiler import PhaseTimer, trace
+from streamz_tpu_torch.runtime.watchdog import watchdog
 
-_VALUE_FLAGS = ("--threshold", "--device", "--burn-in-limit", "--max-speakers")
-_SWITCHES = ("--identify", "--force", "--retrain", "--no-cache-wav", "--no-autotune")
-
-
-@contextlib.contextmanager
-def _phase(times: Dict[str, float], name: str, device: torch.device):
-    """Record the seconds of a phase that ends in a device synchronisation."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    yield
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    times[name] = time.perf_counter() - t0
+_VALUE_FLAGS = ("--threshold", "--device", "--burn-in-limit", "--max-speakers",
+                "--eval-split", "--cluster-embeddings")
+_SWITCHES = ("--identify", "--force", "--retrain", "--no-cache-wav", "--no-autotune",
+             "--eval", "--check-embeddings", "--profile")
 
 
-def _flag_value(args: List[str], flag: str) -> Optional[str]:
+def _flag_value(args: List[str], flag: str, warn: bool = True) -> Optional[str]:
     if flag in args:
         idx = args.index(flag)
         if idx + 1 < len(args):
             return args[idx + 1]
-        print(f"Missing value for {flag}", file=sys.stderr)
+        if warn:
+            print(f"Missing value for {flag}", file=sys.stderr)
     return None
 
 
@@ -114,10 +121,55 @@ def _unported(args: List[str]) -> List[str]:
     return [a for a in args if a.startswith("--") and a not in known]
 
 
+def build_feature_map(
+    paths: List[str], extractor: FeatureExtractor, timer: PhaseTimer,
+    store_paths: Optional[Set[str]] = None,
+):
+    """Decode and resample ``paths`` on the host (the ``ingest`` phase),
+    then one batched frontend call per length bucket (``features``).
+
+    Returns ``(feature_map, store)``, ``store`` a path-keyed
+    :class:`DeviceFeatureStore` of the frontend's device outputs for the
+    consumers on the device, or None where there is none: the ``'numpy'``
+    backend, or ``STREAMZ_STORE_MAX_MB`` (default 4096) at 0 or less.
+    ``store_paths`` keeps only those clips in the store (``--eval`` pins
+    only its targets, the only rows it gathers); the rest are extracted in
+    a separate call, so that no bucket of theirs stays resident.
+    """
+    with timer.phase("ingest"), watchdog("ingest", 600.0):
+        resampled = audio.batch_resample(paths)
+    try:
+        cap_mb = float(os.environ.get("STREAMZ_STORE_MAX_MB", "4096"))
+    except ValueError:
+        cap_mb = 4096.0
+    store = (DeviceFeatureStore(max_bytes=int(cap_mb * 1e6))
+             if extractor.backend != "numpy" and cap_mb > 0 else None)
+    with timer.phase("features"):
+        if store is not None and store_paths is not None:
+            kept = [i for i, (p, _) in enumerate(resampled) if p in store_paths]
+            rest = [i for i, (p, _) in enumerate(resampled) if p not in store_paths]
+            feats: List = [None] * len(resampled)
+            for idxs, st in ((rest, None), (kept, store)):
+                if idxs:
+                    got = extractor.extract_batch([resampled[i][1] for i in idxs], store=st)
+                    for i, f in zip(idxs, got):
+                        feats[i] = f
+            rekey_map = {row: resampled[i][0] for row, i in enumerate(kept)}
+        else:
+            feats = extractor.extract_batch([s for _, s in resampled], store=store)
+            rekey_map = {i: p for i, (p, _) in enumerate(resampled)}
+    if store is not None:
+        store.rekey(rekey_map)
+    return {p: f for (p, _), f in zip(resampled, feats)}, store
+
+
 def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int:
-    """Run the CLI on ``argv``.  A default run fills ``report``, when given,
-    with ``phase_seconds`` (ingest, features, corpus, discovery, finalize)
-    and ``decision_margins`` (one per processed file, app/device_loop.py)."""
+    """Run the CLI on ``argv``.  A default run or ``--eval`` fills
+    ``report``, when given, with ``phase_seconds`` (ingest, features, then
+    corpus, discovery and finalize, or eval), ``store_stats`` (the
+    ``DeviceFeatureStore``'s, None without one), and for a default run
+    ``decision_margins`` (one per processed file, app/device_loop.py), for
+    ``--eval`` ``metrics``."""
     args = list(sys.argv[1:] if argv is None else argv)
     if "--help" in args or "-h" in args:
         try:
@@ -147,6 +199,10 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
         return 2
 
     threshold = _parse_float(args, "--threshold", config.DEFAULT_CONF_THRESHOLD)
+    eval_split = _parse_float(args, "--eval-split", 0.2)
+    burn_in_limit = _parse_int(args, "--burn-in-limit")
+    max_speakers = _parse_int(args, "--max-speakers")
+    cluster_k = _parse_int(args, "--cluster-embeddings")
     device = _flag_value(args, "--device") or "cuda"
     config.set_wav_cache_enabled("--no-cache-wav" not in args)
     if "--no-autotune" in args:
@@ -154,44 +210,168 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
         # a cold cache takes the static default.  Exported so worker
         # subprocesses inherit it.
         os.environ["STREAMZ_NO_AUTOTUNE"] = "1"
+    profile_dir = None
+    if "--profile" in args:
+        # The directory is optional: a bare --profile is valid.
+        maybe = _flag_value(args, "--profile", warn=False)
+        if maybe and not maybe.startswith("--"):
+            profile_dir = maybe
     try:
         extractor = FeatureExtractor(device=device)
     except (RuntimeError, ValueError) as e:  # no CUDA, or an unknown device
         print(f"Cannot run on device {device!r}: {e}", file=sys.stderr)
         return 1
-    if identify_paths:
-        return _identify_mode(identify_paths, threshold, extractor)
-    return _train_mode(
-        extractor, threshold,
-        burn_in_limit=_parse_int(args, "--burn-in-limit"),
-        max_speakers=_parse_int(args, "--max-speakers"),
-        force_retrain="--force" in args or "--retrain" in args,
-        report={} if report is None else report,
-    )
-
-
-def _train_mode(extractor: FeatureExtractor, conf_threshold: float, *,
-                burn_in_limit: Optional[int], max_speakers: Optional[int],
-                force_retrain: bool, report: dict) -> int:
-    """The default run (``streamz_tpu/cli.py:335-554``): ingest, the
-    frontend (K1 or K2, whichever 'auto' measured faster), corpus
-    training of the labelled files (K5), the discovery loop (K6), then
-    centroids, ``model.npz`` and the lists."""
-    times: Dict[str, float] = {}
-    report["phase_seconds"] = times
     dev = extractor.device
+    timer = PhaseTimer(dev)
+    report = {} if report is None else report
+    report["phase_seconds"] = timer.phases
+
+    if "--check-embeddings" in args:
+        try:
+            net = checkpoint.load(config.MODEL_PATH, device=dev)
+        except Exception as e:
+            print(f"Failed to load model from {config.MODEL_PATH}: {e}", file=sys.stderr)
+            return 1
+        print(f"Loaded {config.MODEL_PATH} for embedding check")
+        print_embedding_quality(net, extractor)
+        return 0
+
+    if cluster_k is not None:
+        if cluster_k < 0:
+            print(f"--cluster-embeddings expects a non-negative k, got {cluster_k}",
+                  file=sys.stderr)
+            return 1
+        try:
+            net = checkpoint.load(config.MODEL_PATH, device=dev)
+        except Exception as e:
+            print(f"Failed to load model: {e}", file=sys.stderr)
+            return 1
+        embeds = [np.asarray(m) for m, _, _ in net.embeddings]
+        if not embeds:
+            print("No embeddings available to cluster")
+            return 0
+        for i, lab in enumerate(cluster_embeddings(embeds, cluster_k, 20, device=dev)):
+            print(f"Speaker {i} -> cluster {lab}")
+        return 0
+
+    if identify_paths:
+        return _identify_mode(identify_paths, threshold, extractor, timer)
+
     train_files = fl.load_train_files(config.TRAIN_FILE_LIST)
     if not train_files:
         print(f"{config.TRAIN_FILE_LIST} is empty", file=sys.stderr)
         return 1
-    original_paths = [p for p, _ in train_files]
+    target_files = fl.load_target_files(config.TARGET_FILE_LIST)
+    eval_mode = "--eval" in args
     audio.precache_mp3_files(train_files)
+    if eval_mode:
+        audio.precache_target_files(target_files)
+    profile = "--profile" in args
+    with trace(profile_dir, dev):
+        if eval_mode:
+            return _eval_mode(train_files, target_files, eval_split, threshold,
+                              extractor, timer, report, profile=profile)
+        return _train_mode(
+            train_files, extractor, threshold, timer,
+            burn_in_limit=burn_in_limit, max_speakers=max_speakers,
+            force_retrain="--force" in args or "--retrain" in args,
+            report=report, profile=profile,
+        )
 
-    with _phase(times, "ingest", dev):
-        resampled = audio.batch_resample([p for p, _ in train_files])
-    with _phase(times, "features", dev):
-        feats = extractor.extract_batch([pcm for _, pcm in resampled])
-    feature_map = {p: f for (p, _), f in zip(resampled, feats)}
+
+def _eval_mode(train_files, target_files, eval_split: float, threshold: float,
+               extractor: FeatureExtractor, timer: PhaseTimer, report: dict, *,
+               profile: bool) -> int:
+    """``--eval`` (``src/main.rs:522-625``): features of the training and
+    target clips, only the targets kept on the card, then the metrics of
+    ``model.npz`` on the targets."""
+    dev = extractor.device
+    # Resolved once: the store pins, and evaluate scores, the same list.
+    targets = resolve_eval_targets(train_files, target_files, eval_split)
+    feature_map, store = build_feature_map(
+        [p for p, _ in train_files] + [p for p, _ in target_files], extractor, timer,
+        store_paths={p for p, _ in targets})
+    report["store_stats"] = None if store is None else store.stats
+    for p, _ in train_files:
+        if p not in feature_map:
+            print(f"No features found for training path: {p}", file=sys.stderr)
+    print(f"Evaluating with threshold = {threshold}")
+    # The in-memory lists, whose MP3 entries the precache rewrote to the
+    # cache-WAV paths the feature map is keyed by.  The reference re-loads
+    # the raw lists here (src/main.rs:525) and so evaluates no file of an
+    # MP3 target list: consciously fixed (QUIRKS.md).
+    label_map = fl.build_label_map(train_files, targets)
+    norm_targets = fl.normalize_with_map(targets, label_map)
+    try:
+        if not os.path.exists(config.MODEL_PATH):
+            print(f"Model file {config.MODEL_PATH} not found. Please train first.",
+                  file=sys.stderr)
+            return 1
+        print(f"Loading model from {config.MODEL_PATH}")
+        try:
+            net = checkpoint.load(config.MODEL_PATH, device=dev)
+        except Exception as e:
+            print(f"Failed to load model: {e}", file=sys.stderr)
+            return 1
+        print(f"Model contains {len(net.embeddings)} saved embeddings")
+        with timer.phase("eval"):
+            report["metrics"] = evaluate(net, feature_map, norm_targets, threshold,
+                                         store=store)
+    finally:
+        if store is not None:
+            store.release()
+    if profile:
+        print(timer.report())
+    return 0
+
+
+def _train_mode(train_files, extractor: FeatureExtractor, conf_threshold: float,
+                timer: PhaseTimer, *, burn_in_limit: Optional[int],
+                max_speakers: Optional[int], force_retrain: bool, report: dict,
+                profile: bool) -> int:
+    """The default run (``streamz_tpu/cli.py:335-554``): ingest, the
+    frontend (K1 or K2, whichever 'auto' measured faster) with its outputs
+    kept on the card, corpus training of the labelled files (K5), the
+    discovery loop (K6) fed from the card, then centroids, ``model.npz``
+    and the lists."""
+    original_paths = [p for p, _ in train_files]
+    feature_map, store = build_feature_map(original_paths, extractor, timer)
+    report["store_stats"] = None if store is None else store.stats
+    try:
+        net, result = _train(train_files, feature_map, store, extractor, conf_threshold,
+                             timer, burn_in_limit=burn_in_limit,
+                             max_speakers=max_speakers, force_retrain=force_retrain)
+        report["decision_margins"] = result.decision_margins
+        with timer.phase("finalize"):
+            finalize_and_save(net, result, feature_map=feature_map, store=store)
+            updated = list(zip(original_paths, (c for _, c in train_files)))
+            fl.write_train_files(config.TRAIN_FILE_LIST, updated)
+            fl.write_target_files(config.TARGET_FILE_LIST, train_files)
+    finally:
+        if store is not None:
+            store.release()  # free the card's copies of the features
+    if profile:
+        print(timer.report())
+
+    print("Updated training file labels:")
+    for p, c in updated:
+        if c is not None:
+            print(f"{p} -> speaker {c + 1}")
+        else:
+            print(f"{p} -> speaker unknown")
+    print(f"Processed {fl.count_speakers(train_files)} speakers in this batch.")
+    print(f"Number of speakers discovered: {net.output_size()}")
+    for i in range(net.output_size()):
+        n = len(result.speaker_features.get(i, []))
+        print(f"Speaker {i}: {n} samples")
+    return 0
+
+
+def _train(train_files, feature_map, store, extractor, conf_threshold, timer, *,
+           burn_in_limit, max_speakers, force_retrain):
+    """Load or train the net on the corpus, then the discovery loop over
+    every file; returns (net, the loop's result)."""
+    dev = extractor.device
     for p, _ in train_files:
         if p not in feature_map:
             print(f"No features found for training path: {p}", file=sys.stderr)
@@ -209,8 +389,8 @@ def _train_mode(extractor: FeatureExtractor, conf_threshold: float, *,
         try:
             net = checkpoint.load(config.MODEL_PATH, device=dev)
             print(f"Loaded saved model from {config.MODEL_PATH}")
-            net.set_embeddings(
-                compute_speaker_embeddings(net, extractor, feature_map=feature_map))
+            net.set_embeddings(compute_speaker_embeddings(
+                net, extractor, feature_map=feature_map, store=store))
         except Exception as e:
             print(f"Failed to load model: {e}", file=sys.stderr)
             net = SpeakerNet.new(output=max(num_speakers, 1), device=dev)
@@ -226,7 +406,7 @@ def _train_mode(extractor: FeatureExtractor, conf_threshold: float, *,
     if not model_exists:
         train_refs = [(p, c) for p, c in train_files if c is not None]
         if train_refs:
-            with _phase(times, "corpus", dev):
+            with timer.phase("corpus"):
                 pool_x, pool_y = corpus.build_window_pool(feature_map, train_refs)
                 losses = corpus.train_corpus(
                     net, pool_x, pool_y, epochs=config.TRAIN_EPOCHS, lr=0.01,
@@ -237,37 +417,21 @@ def _train_mode(extractor: FeatureExtractor, conf_threshold: float, *,
             if losses:
                 print(f"Initial training loss: {float(np.mean(losses)):.4f}")
 
-    with _phase(times, "discovery", dev):
+    with timer.phase("discovery"):
         result = run_incremental(
             net, train_files, feature_map, burn_in_limit=burn_in_limit_val,
             conf_threshold=conf_threshold, max_speakers=max_speakers_val,
+            device_store=store,
         )
-    report["decision_margins"] = result.decision_margins
-    with _phase(times, "finalize", dev):
-        finalize_and_save(net, result, feature_map=feature_map)
-        updated = list(zip(original_paths, (c for _, c in train_files)))
-        fl.write_train_files(config.TRAIN_FILE_LIST, updated)
-        fl.write_target_files(config.TARGET_FILE_LIST, train_files)
-
-    print("Updated training file labels:")
-    for p, c in updated:
-        if c is not None:
-            print(f"{p} -> speaker {c + 1}")
-        else:
-            print(f"{p} -> speaker unknown")
-    print(f"Processed {fl.count_speakers(train_files)} speakers in this batch.")
-    print(f"Number of speakers discovered: {net.output_size()}")
-    for i in range(net.output_size()):
-        n = len(result.speaker_features.get(i, []))
-        print(f"Speaker {i}: {n} samples")
-    return 0
+    return net, result
 
 
-def _identify_mode(paths: List[str], threshold: float,
-                   extractor: FeatureExtractor) -> int:
+def _identify_mode(paths: List[str], threshold: float, extractor: FeatureExtractor,
+                   timer: PhaseTimer) -> int:
     """One-shot identification of ``paths`` against the saved model: host
-    decode/resample, the frontend (the 'auto' winner on CUDA), mean-pooled ReLU-h2
-    embeddings, cosine against the stored centroids, the adaptive gate."""
+    decode/resample, the frontend (the 'auto' winner on CUDA) with its
+    outputs kept on the card, mean-pooled ReLU-h2 embeddings gathered
+    there, cosine against the stored centroids, the adaptive gate."""
     try:
         net = checkpoint.load(config.MODEL_PATH, device=extractor.device)
     except Exception as e:
@@ -285,11 +449,14 @@ def _identify_mode(paths: List[str], threshold: float,
         f"({net.output_size()} speakers, {len(net.embeddings)} embeddings)"
     )
 
-    resampled = audio.batch_resample(paths)
-    feats = extractor.extract_batch([pcm for _, pcm in resampled])
-    feature_map = {p: f for (p, _), f in zip(resampled, feats)}
+    feature_map, store = build_feature_map(paths, extractor, timer)
     present = [p for p in paths if p in feature_map]
-    embeddings = batch_clip_embeddings(net, [feature_map[p] for p in present])
+    try:
+        embeddings = batch_clip_embeddings(net, [feature_map[p] for p in present],
+                                           store=store, keys=present)
+    finally:
+        if store is not None:
+            store.release()
     centroids = np.stack([np.asarray(m, np.float32) for m, _, _ in net.embeddings])
     sims = (
         cosine_matrix_many(np.stack(embeddings), centroids)

@@ -7,6 +7,7 @@ quietly on the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,16 @@ def resolve_device(device: "str | torch.device | None" = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def staged(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` as a tensor to copy to ``dev``: pinned for a CUDA device, so a
+    ``non_blocking`` copy does not block the host (the caching host
+    allocator keeps the buffer until the copy is done)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.pin_memory() if dev.type == "cuda" else t
+
+
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` without waiting for the device's queue."""
+    return staged(a, dev).to(dev, non_blocking=True)

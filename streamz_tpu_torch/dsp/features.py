@@ -150,12 +150,20 @@ class FeatureExtractor:
         """PCM (i16 or f32) → [n_windows, 60] float32."""
         return self.extract_batch([samples])[0]
 
-    def extract_batch(self, clips: Sequence[np.ndarray]) -> List[np.ndarray]:
-        """Batched extraction: one frontend call per padded-length bucket."""
+    def extract_batch(
+        self, clips: Sequence[np.ndarray],
+        store: Optional[mfcc.DeviceFeatureStore] = None,
+    ) -> List[np.ndarray]:
+        """Batched extraction: one frontend call per padded-length bucket.
+        With ``store`` the device outputs are also kept there for the
+        consumers on the device; the ``'numpy'`` backend takes none."""
         if self.backend == "numpy":
+            if store is not None:
+                raise ValueError("the 'numpy' backend computes on the host "
+                                 "and fills no device store")
             return [mfcc_ref.extract_features_np(c) for c in clips]
         return mfcc.extract_features_batch(
-            clips, core=_core_for(self.resolved()), device=self.device
+            clips, core=_core_for(self.resolved()), device=self.device, store=store
         )
 
 
@@ -176,6 +184,12 @@ def _global_extractor() -> FeatureExtractor:
 def with_thread_extractor(f: Callable[[FeatureExtractor], R]) -> R:
     """Run a closure with the process-global extractor (src/lib.rs:271-276)."""
     return f(_global_extractor())
+
+
+def extract_with(extractor: Optional[FeatureExtractor], samples: np.ndarray) -> np.ndarray:
+    """One clip's [n_windows, 60] features through ``extractor``, or through
+    the process-global one when it is None."""
+    return (extractor or _global_extractor()).extract(np.asarray(samples))
 
 
 def save_cached_features(path: str, feats: np.ndarray) -> None:
@@ -212,7 +226,6 @@ def load_cached_features(
             # Torn cache file (a writer interrupted mid-save): recompute
             # and overwrite instead of failing every later run.
             pass
-    extractor = extractor or _global_extractor()
-    feats = extractor.extract(audio.load_audio_samples(path))
+    feats = extract_with(extractor, audio.load_audio_samples(path))
     save_cached_features(path, feats)
     return feats

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from streamz_tpu_torch import config
-from streamz_tpu_torch.device import resolve_device
+from streamz_tpu_torch.device import resolve_device, upload
 from streamz_tpu_torch.dsp import mel as melmod
 
 _BLOCK = config.HOP_SIZE  # 400
@@ -156,8 +156,127 @@ def extract_features(
     return extract_features_batch([samples], core=core, device=device)[0]
 
 
+class DeviceFeatureStore:
+    """The frontend's outputs kept on the device, indexed for reuse there.
+
+    The port of ``streamz_tpu/dsp/mfcc.py:DeviceFeatureStore`` on one
+    device (its mesh arguments are not ported).  :func:`extract_features_batch`
+    computes the features on the device and returns host copies; handed a
+    store it also keeps each bucket's ``[B, W, 60]`` output alive and
+    records where each clip's rows lie, so that the discovery loop,
+    ``--eval`` and finalize assemble their batches on the device instead of
+    uploading again the features just downloaded.
+
+    A gathered row equals the host zero-packed row bit for bit:
+    :func:`deltas_and_norm` zeroes every frame past a clip's window count.
+
+    ``max_bytes`` bounds the residency: a bucket that would push the total
+    past it is not registered, its clips miss, and every consumer packs
+    them on the host.  Call :meth:`release` when the consumers are done.
+    """
+
+    def __init__(self, max_bytes: Optional[int] = None):
+        self.max_bytes = max_bytes
+        self._bytes = 0
+        self._buckets: List[torch.Tensor] = []
+        self._index: dict = {}  # key -> (bucket_id, row, n_win)
+        # host_pack_*: feature bytes consumers uploaded to repair misses
+        # (scatter_rows), the misses only.  dropped_*: buckets refused by
+        # the max_bytes cap.
+        self.stats = {
+            "host_pack_bytes": 0, "host_pack_rows": 0,
+            "dropped_buckets": 0, "dropped_bytes": 0,
+        }
+
+    def add_bucket(self, feats_dev: torch.Tensor, keys, n_wins) -> None:
+        """Register one bucket's device output; ``keys[row]`` names the clip
+        in row ``row``.  A bucket past ``max_bytes`` is dropped."""
+        nb = feats_dev.numel() * feats_dev.element_size()
+        if self.max_bytes is not None and self._bytes + nb > self.max_bytes:
+            self.stats["dropped_buckets"] += 1
+            self.stats["dropped_bytes"] += nb
+            return
+        self._bytes += nb
+        bid = len(self._buckets)
+        self._buckets.append(feats_dev)
+        for row, key in enumerate(keys):
+            self._index[key] = (bid, row, int(n_wins[row]))
+
+    def rekey(self, mapping) -> None:
+        """Replace each key ``k`` by ``mapping[k]`` (e.g. clip index → file
+        path, the consumers' key space); keys not in ``mapping`` drop."""
+        self._index = {mapping[k]: v for k, v in self._index.items() if k in mapping}
+
+    def lookup(self, key):
+        """``(bucket_id, row, n_win)`` for a clip, or None."""
+        return self._index.get(key)
+
+    def bucket(self, bid: int) -> torch.Tensor:
+        return self._buckets[bid]
+
+    def release(self) -> None:
+        """Drop the device tensors; later lookups miss."""
+        self._buckets = []
+        self._index = {}
+        self._bytes = 0
+
+    def gather(self, keys, w_pad: int, *, n_rows: Optional[int] = None):
+        """All or nothing: the gathered ``[n_rows, w_pad, feat]`` tensor when
+        every key hits, else None (the caller packs the batch on the host)."""
+        if any(self._index.get(k) is None for k in keys):
+            return None
+        return self.gather_partial(keys, w_pad, n_rows=n_rows)[0]
+
+    def gather_partial(self, keys, w_pad: int, *, n_rows: Optional[int] = None):
+        """Assemble ``[n_rows, w_pad, feat]`` on the device, row ``r``
+        holding ``keys[r]``'s windows.  Returns ``(wins, missing)``:
+        ``missing`` lists the ``(row, key)`` pairs not in the store, whose
+        rows stay zero for :meth:`scatter_rows`; ``wins`` is None when no
+        key hits.  ``w_pad`` must hold every gathered clip's window count;
+        rows past ``len(keys)`` stay zero."""
+        hits, missing = [], []
+        for row, key in enumerate(keys):
+            h = self._index.get(key)
+            if h is None:
+                missing.append((row, key))
+            else:
+                hits.append((row, h))
+        if not hits:
+            return None, missing
+        first = self._buckets[hits[0][1][0]]
+        R = len(keys) if n_rows is None else int(n_rows)
+        wins = torch.zeros((R, w_pad, first.shape[2]), dtype=first.dtype,
+                           device=first.device)
+        groups: dict = {}
+        for row, (bid, srow, _) in hits:
+            dsts, srcs = groups.setdefault(bid, ([], []))
+            dsts.append(row)
+            srcs.append(srow)
+        for bid, (dsts, srcs) in groups.items():
+            bucket = self._buckets[bid]
+            w = min(int(bucket.shape[1]), w_pad)
+            idx = upload(np.asarray(srcs + dsts, np.int64), bucket.device)
+            src, dst = idx[: len(srcs)], idx[len(srcs):]
+            wins[:, :w].index_copy_(0, dst, bucket[:, :w].index_select(0, src))
+        return wins, missing
+
+    def scatter_rows(self, wins: torch.Tensor, rows_host: np.ndarray, dst_rows):
+        """``wins[dst_rows[j]] = rows_host[j]`` on the device: the miss
+        repair of :meth:`gather_partial`.  ``rows_host`` is the host-packed
+        ``[n_miss, w_pad, feat]`` windows of the missing clips only;
+        ``stats['host_pack_bytes']`` meters its bytes."""
+        n = len(dst_rows)
+        if n == 0:
+            return wins
+        self.stats["host_pack_bytes"] += int(rows_host.nbytes)
+        self.stats["host_pack_rows"] += n
+        dst = upload(np.asarray(dst_rows, np.int64), wins.device)
+        return wins.index_copy_(0, dst, upload(rows_host, wins.device))
+
+
 def extract_features_batch(
-    clips: Sequence[np.ndarray], core: Optional[Core] = None, device=None
+    clips: Sequence[np.ndarray], core: Optional[Core] = None, device=None,
+    store: Optional[DeviceFeatureStore] = None,
 ) -> List[np.ndarray]:
     """Many ragged clips → list of [n_windows_i, 60] arrays.
 
@@ -165,6 +284,8 @@ def extract_features_batch(
     batched call on ``device`` (``cuda`` unless ``'cpu'`` is asked for).
     ``core`` selects the frontend (default: the plain formulation;
     :class:`streamz_tpu_torch.dsp.features.FeatureExtractor` passes K1's).
+    With ``store`` each bucket's device output is also registered there,
+    under the clip's position in ``clips``.
     """
     if not clips:
         return []
@@ -183,9 +304,13 @@ def extract_features_batch(
             batch[row, : len(f32[i])] = f32[i]
             lens[row] = len(f32[i])
         with torch.inference_mode():
-            feats = core(
+            feats_dev = core(
                 torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev)
-            ).cpu().numpy()
+            )
+        n_wins = [window_count_host(int(n)) for n in lens]
+        if store is not None:
+            store.add_bucket(feats_dev, idxs, n_wins)
+        feats = feats_dev.cpu().numpy()
         for row, i in enumerate(idxs):
-            out[i] = feats[row, : window_count_host(int(lens[row]))].copy()
+            out[i] = feats[row, : n_wins[row]].copy()
     return out

@@ -1,22 +1,30 @@
-"""Clip-level embeddings: ReLU-h2 windows pooled per clip, L2-normalized.
+"""Clip-level embeddings: windows pooled per clip, L2-normalized.
 
-The port of the pooling paths of ``streamz_tpu/infer/embed.py``:
-``batch_clip_embeddings`` mean-pools (``streamz-rs/src/lib.rs:1450-1471``)
-and ``batch_median_embeddings`` median-pools (``src/lib.rs:1474-1495``),
-both over clips bucketed by power-of-two window count and padded to a
-power-of-two clip count, one call per bucket on the net's device;
-``extract_embedding_from_features`` mean-pools one clip.
+The port of ``streamz_tpu/infer/embed.py``, with the reference's
+intentional asymmetries between call sites: ``extract_embedding`` pools the
+tanh-h2 head of raw PCM with a per-dimension median
+(``streamz-rs/src/lib.rs:1418-1447``), ``extract_embedding_from_features``
+the ReLU-h2 head with a mean (``src/lib.rs:1450-1471``) and
+``median_embedding_from_features`` the ReLU-h2 head with a median
+(``src/lib.rs:1474-1495``).  ``batch_clip_embeddings`` and
+``batch_median_embeddings`` are the last two over many clips, bucketed by
+power-of-two window count and padded to a power-of-two clip count, one
+call per bucket on the net's device; with the ingest stage's
+``DeviceFeatureStore`` a bucket gathers its rows on the device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from streamz_tpu_torch import config
-from streamz_tpu_torch.nn.model import Params, SpeakerNet, forward_embedding
+from streamz_tpu_torch.device import upload
+from streamz_tpu_torch.dsp.features import extract_with
+from streamz_tpu_torch.dsp.mfcc import DeviceFeatureStore
+from streamz_tpu_torch.nn.model import Params, SpeakerNet, embed, forward_embedding
 
 
 def normalize(v: np.ndarray) -> np.ndarray:
@@ -53,9 +61,15 @@ def _fembed_median_batch(
     """Masked exact median ReLU-h2 embeddings: padding rows sort to +inf and
     the two middle order statistics of the true count are averaged (the
     reference's even/odd midpoint rule, src/lib.rs:1483-1492)."""
-    e = forward_embedding(params, windows)  # [B, W, h2]
-    W = windows.shape[1]
-    mask = (torch.arange(W, device=windows.device)[None, :] < n_valid[:, None])[..., None]
+    return _masked_median(forward_embedding(params, windows), n_valid)
+
+
+def _masked_median(e: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
+    """Per-clip median over the first ``n_valid`` rows of e [B, W, H] → [B, H],
+    the midpoint of the two middle order statistics for an even count (as
+    ``jnp.median``)."""
+    W = e.shape[1]
+    mask = (torch.arange(W, device=e.device)[None, :] < n_valid[:, None])[..., None]
     s = torch.sort(torch.where(mask, e, torch.full((), float("inf"), device=e.device)),
                    dim=1).values
     n = torch.clamp(n_valid, min=1)
@@ -66,11 +80,18 @@ def _fembed_median_batch(
 
 
 def _batch_pooled(
-    net: SpeakerNet, clips, kernel: Callable[..., torch.Tensor]
+    net: SpeakerNet, clips, kernel: Callable[..., torch.Tensor],
+    store: Optional[DeviceFeatureStore] = None, keys: Optional[Sequence] = None,
 ) -> List[np.ndarray]:
     """Shared scaffold: bucket clips by power-of-two window count, pad each
     bucket's clip axis to a power of two (n_valid = 0 rows are masked
-    no-ops), run ``kernel`` once per bucket and L2-normalize on the host."""
+    no-ops), run ``kernel`` once per bucket and L2-normalize on the host.
+
+    With ``store`` and ``keys`` (``keys[i]`` is clip ``i``'s store key) a
+    bucket whose clips hit is gathered on the device, and only its missed
+    clips are packed on the host and scattered in; a bucket with no hit is
+    packed on the host whole.  The rows are the same either way, so are the
+    embeddings."""
     arrs = [np.asarray(c, np.float32) for c in clips]
     out: List[np.ndarray] = [None] * len(arrs)  # type: ignore[list-item]
     buckets: dict = {}
@@ -81,44 +102,79 @@ def _batch_pooled(
             continue
         buckets.setdefault(config.next_pow2(len(a)), []).append(i)
     params = net.params
+    dev = net.device
     for n_pad, idxs in buckets.items():
         B_pad = config.next_pow2(len(idxs))
         lens = np.zeros((B_pad,), np.int64)
-        batch = np.zeros((B_pad, n_pad, feat), np.float32)
         for row, i in enumerate(idxs):
             lens[row] = len(arrs[i])
-            batch[row, : len(arrs[i])] = arrs[i]
+        batch_d = None
+        if store is not None and keys is not None:
+            batch_d, misses = store.gather_partial([keys[i] for i in idxs], n_pad,
+                                                   n_rows=B_pad)
+            if batch_d is not None and misses:
+                pack = np.zeros((len(misses), n_pad, feat), np.float32)
+                for j, (r, _) in enumerate(misses):
+                    pack[j, : lens[r]] = arrs[idxs[r]]
+                batch_d = store.scatter_rows(batch_d, pack, [r for r, _ in misses])
+        if batch_d is None:
+            batch = np.zeros((B_pad, n_pad, feat), np.float32)
+            for row, i in enumerate(idxs):
+                batch[row, : len(arrs[i])] = arrs[i]
+            batch_d = torch.from_numpy(batch).to(dev)
         with torch.inference_mode():
-            embs = kernel(
-                params,
-                torch.from_numpy(batch).to(net.device),
-                torch.from_numpy(lens).to(net.device),
-            ).cpu().numpy()
+            embs = kernel(params, batch_d, upload(lens, dev)).cpu().numpy()
         for row, i in enumerate(idxs):
             out[i] = normalize(embs[row])
     return out
 
 
-def batch_clip_embeddings(net: SpeakerNet, clips) -> List[np.ndarray]:
+def batch_clip_embeddings(net: SpeakerNet, clips, store=None, keys=None) -> List[np.ndarray]:
     """Mean-pooled ReLU-h2 embeddings for many clips in few device calls,
     each L2-normalized (the per-clip ``extract_embedding_from_features``
-    contract, batched)."""
-    return _batch_pooled(net, clips, _fembed_mean_batch)
+    contract, batched).  ``store``/``keys``: see :func:`_batch_pooled`;
+    only where ``clips[i]`` is the ingest output of ``keys[i]``."""
+    return _batch_pooled(net, clips, _fembed_mean_batch, store, keys)
 
 
-def batch_median_embeddings(net: SpeakerNet, clips) -> List[np.ndarray]:
+def batch_median_embeddings(net: SpeakerNet, clips, store=None, keys=None) -> List[np.ndarray]:
     """Median-pooled ReLU-h2 embeddings for many clips, bucketed and
-    batched, each L2-normalized."""
-    return _batch_pooled(net, clips, _fembed_median_batch)
+    batched, each L2-normalized (:func:`median_embedding_from_features`
+    per clip, the even-count midpoint rule included).  ``store``/``keys``
+    as :func:`batch_clip_embeddings`: a clip read from the feature cache
+    must carry a key that misses."""
+    return _batch_pooled(net, clips, _fembed_median_batch, store, keys)
 
 
-def extract_embedding_from_features(net: SpeakerNet, feats: np.ndarray) -> np.ndarray:
-    """Mean-pooled ReLU-h2 embedding of one clip, L2-normalized
-    (src/lib.rs:1450-1471)."""
+def _one_clip(net: SpeakerNet, feats: np.ndarray, pool) -> np.ndarray:
     feats = np.asarray(feats, np.float32)
     if len(feats) == 0:
         return np.zeros((net.embedding_size(),), np.float32)
     with torch.inference_mode():
-        e = forward_embedding(net.params, torch.from_numpy(feats).to(net.device))
-        emb = e.mean(dim=0).cpu().numpy()
+        emb = pool(torch.from_numpy(feats).to(net.device)).cpu().numpy()
     return normalize(emb)
+
+
+def extract_embedding(net: SpeakerNet, sample, extractor=None) -> np.ndarray:
+    """Median-pooled tanh-h2 embedding of raw PCM, L2-normalized
+    (src/lib.rs:1418-1447); ``extractor`` defaults to the process-global
+    one."""
+    windows = extract_with(extractor, sample)
+    n = torch.tensor([len(windows)], device=net.device)
+    return _one_clip(net, windows,
+                     lambda x: _masked_median(embed(net.params, x)[None], n)[0])
+
+
+def extract_embedding_from_features(net: SpeakerNet, feats: np.ndarray) -> np.ndarray:
+    """Mean-pooled ReLU-h2 embedding of one clip, L2-normalized
+    (src/lib.rs:1450-1471): the variant the discovery loop and ``--eval``
+    use."""
+    return _one_clip(net, feats, lambda x: forward_embedding(net.params, x).mean(dim=0))
+
+
+def median_embedding_from_features(net: SpeakerNet, feats: np.ndarray) -> np.ndarray:
+    """Median-pooled ReLU-h2 embedding of one clip, L2-normalized
+    (src/lib.rs:1474-1495)."""
+    n = torch.tensor([len(feats)], device=net.device)
+    return _one_clip(net, feats, lambda x: _masked_median(
+        forward_embedding(net.params, x)[None], n)[0])

@@ -1,22 +1,91 @@
-"""Speaker identification by gated per-window votes.
+"""Speaker identification by summed or gated per-window votes.
 
-The port of the batched vote pipeline of ``streamz_tpu/infer/identify.py``
-(``identify_speaker_list``, ``streamz-rs/src/lib.rs:1383-1411``): a window
-votes for its argmax class when that probability clears the threshold;
-speakers come back sorted by descending vote count, ties in ascending id.
-This is the pipeline the JAX package's ``bench.py`` times: frontend →
-``forward`` → gated votes.
+The port of ``streamz_tpu/infer/identify.py`` on one device, through the
+FP32 ``nn/model.forward`` (as the JAX identifiers run XLA's forward):
+
+- ``identify_speaker``: the argmax of the window softmax sums
+  (``streamz-rs/src/lib.rs:1285-1303``);
+- ``identify_speaker_with_threshold(_feats)``: confidence = best sum /
+  window count, ``None`` below the threshold or when ``output_size <= 1``
+  (``src/lib.rs:1307-1377``);
+- ``identify_speaker_list`` and its batched form
+  ``identify_speaker_list_batch`` (``src/lib.rs:1383-1411``): a window
+  votes for its argmax class when that probability clears the threshold;
+  speakers come back sorted by descending vote count, ties in ascending
+  id.  The batched form is the pipeline the JAX package's ``bench.py``
+  times: frontend → ``forward`` → gated votes.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from streamz_tpu_torch import config
+from streamz_tpu_torch.dsp.features import extract_with
 from streamz_tpu_torch.nn.model import Params, SpeakerNet, forward
+
+
+def _probs(net: SpeakerNet, windows: np.ndarray) -> torch.Tensor:
+    """[W, capacity] softmax probabilities of the windows."""
+    with torch.inference_mode():
+        return forward(net.params, torch.from_numpy(np.asarray(windows, np.float32))
+                       .to(net.device), net.num_speakers)
+
+
+def identify_speaker(net: SpeakerNet, sample, extractor=None) -> int:
+    """Argmax of the summed window softmax of raw PCM (src/lib.rs:1285-1303);
+    0 without speakers or windows."""
+    if not net.num_speakers:
+        return 0
+    windows = extract_with(extractor, sample)
+    if len(windows) == 0:
+        return 0
+    sums = _probs(net, windows).sum(dim=0).cpu().numpy()
+    return int(sums[: net.num_speakers].argmax())
+
+
+def identify_speaker_with_threshold_feats(
+    net: SpeakerNet, windows: np.ndarray, threshold: float
+) -> Optional[int]:
+    """Thresholded voting on precomputed windows (src/lib.rs:1346-1377): a
+    single-speaker net always answers ``None`` (:1316-1318); a bare [F]
+    vector is one window."""
+    if net.output_size() <= 1:
+        return None
+    windows = np.asarray(windows, np.float32)
+    if windows.ndim == 1:
+        windows = windows.reshape(1, -1)
+    if len(windows) == 0:
+        return None
+    sums = _probs(net, windows).sum(dim=0).cpu().numpy()[: net.num_speakers]
+    best_idx = int(sums.argmax())
+    confidence = float(sums[best_idx]) / len(windows)
+    return best_idx if confidence >= threshold else None
+
+
+def identify_speaker_with_threshold(
+    net: SpeakerNet, sample, threshold: float, extractor=None
+) -> Optional[int]:
+    """Thresholded voting on raw PCM (src/lib.rs:1307-1343)."""
+    if net.output_size() <= 1:
+        return None
+    return identify_speaker_with_threshold_feats(
+        net, extract_with(extractor, sample), threshold)
+
+
+def identify_speaker_list(
+    net: SpeakerNet, sample, threshold: float, extractor=None
+) -> List[int]:
+    """All speakers present in raw PCM, by gated per-window votes
+    (src/lib.rs:1383-1411)."""
+    windows = extract_with(extractor, sample)
+    if len(windows) == 0 or net.num_speakers == 0:
+        return []
+    return _list_from_probs(_probs(net, windows).cpu().numpy(), net.num_speakers,
+                            threshold)
 
 
 def _sorted_from_counts(counts: np.ndarray, num_speakers: int) -> List[int]:

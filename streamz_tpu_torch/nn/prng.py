@@ -10,7 +10,9 @@ train on the same bits and their labels can be compared exactly:
 - ``split(key, n)[i]`` and ``fold_in(key, i)`` hash the counter (0, i);
 - ``uniform(key, shape)`` hashes the flat C-order index of each element,
   split into (hi, lo) 32-bit words, takes ``out0 ^ out1`` as its 32 random
-  bits and maps them to ``[0, 1)`` as ``bitcast((bits >> 9) | 0x3F800000) - 1``.
+  bits and maps them to ``[0, 1)`` as ``bitcast((bits >> 9) | 0x3F800000) - 1``;
+- ``permutation`` and ``randint`` are ``jax.random``'s on those bits (the
+  draws of ``streamz_tpu/infer/cluster.py``).
 
 uint32 arithmetic runs in int64 with a 32-bit mask.  Every function takes a
 batch of keys (leading dimensions) and broadcasts over it.
@@ -18,6 +20,7 @@ batch of keys (leading dimensions) and broadcasts over it.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import torch
@@ -93,3 +96,46 @@ def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.uniform(key, shape)`` in float32 on [0, 1)."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
     return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` for one key: a permutation of
+    ``arange(n)`` (int64), bit for bit.
+
+    JAX 0.9.0's ``_shuffle`` sorts by fresh 32-bit keys for
+    ``ceil(3 ln n / ln(2**32 - 1))`` rounds (none for n = 1, one up to
+    n = 1625), splitting the key each round (``key, subkey = split(key)``,
+    the sort keys ``random_bits(subkey, (n,))``).  Its ``lax.sort_key_val``
+    runs with its default ``is_stable=True``, so two elements that draw the
+    same 32-bit key keep their order within the round; the stable sort here
+    does the same, and ties give the same permutation too.
+    """
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_MASK)))
+    for _ in range(rounds):
+        key, subkey = split(key)
+        order = torch.argsort(random_bits(subkey, (n,)), stable=True)
+        x = x[order]
+    return x
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` in int32, bit for
+    bit: two words per element from the halves of ``split(key)``, reduced
+    modulo the span as ``(hi % span) * m + lo % span`` with
+    ``m = (2**16 % span)**2 % span``, every step in wrapping uint32
+    arithmetic as ``_randint`` computes it.  A span of 0 or less gives
+    ``minval``."""
+    lo32, hi32 = -(2 ** 31), 2 ** 31 - 1
+    minval = min(max(int(minval), lo32), hi32)
+    maxval = min(max(int(maxval), lo32), hi32)
+    span = 1 if maxval <= minval else (maxval - minval) & _MASK
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    mult = (((2 ** 16 % span) ** 2) & _MASK) % span
+    offset = (((higher % span) * mult) & _MASK) + lower % span
+    offset = (offset & _MASK) % span
+    out = (minval + offset + 2 ** 31) % 2 ** 32 - 2 ** 31  # int32 wrap
+    return out.to(torch.int32)

@@ -703,3 +703,80 @@ def test_k7_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         forward_probs_k7(params, x[:, ::2], 3)
     assert forward_probs_k7(params, x[:0], 3).shape == (0, 128)
+
+
+# ---------------------------------------------------------------------------
+# The DeviceFeatureStore on the card: the discovery loop and --eval fed
+# from it give the bits they give without it.
+# ---------------------------------------------------------------------------
+
+from streamz_tpu_torch.app.evaluate import evaluate  # noqa: E402
+from streamz_tpu_torch.app.incremental import run_incremental  # noqa: E402
+from streamz_tpu_torch.dsp.mfcc import DeviceFeatureStore  # noqa: E402
+from streamz_tpu_torch.infer.embed import batch_clip_embeddings, normalize  # noqa: E402
+from streamz_tpu_torch.nn import drivers  # noqa: E402
+from streamz_tpu_torch.nn.model import SpeakerNet  # noqa: E402
+
+
+def _store_corpus(device, n=12, seed=4):
+    """Seeded clips of three voices (2 to 3 s, two frontend buckets) through
+    the 'auto' frontend on ``device``, kept in a path-keyed store."""
+    rng = np.random.default_rng(seed)
+    clips = []
+    for i in range(n):
+        t = np.arange(int((2.0 + 0.1 * i) * 44100)) / 44100
+        f0 = 110.0 + 80.0 * (i % 3)
+        x = sum(0.6 ** h * np.sin(2 * np.pi * f0 * (h + 1) * t + rng.uniform(0, 6.3))
+                for h in range(10))
+        clips.append((x / np.abs(x).max() * 12000 + rng.normal(0, 200, t.shape))
+                     .astype(np.int16))
+    paths = [f"c{i}.wav" for i in range(n)]
+    store = DeviceFeatureStore()
+    feats = FeatureExtractor(device=device).extract_batch(clips, store=store)
+    store.rekey(dict(enumerate(paths)))
+    return paths, dict(zip(paths, feats)), store
+
+
+@pytest.mark.cuda
+def test_store_discovery_equals_host_packing_on_card(cuda_device):
+    """The discovery loop on the card fed from the store against the same
+    loop fed by the host upload: labels, parameters and margins bit for
+    bit, no host packing; and a store gather enqueues without waiting."""
+    paths, fm, store = _store_corpus(cuda_device)
+    files = [(p, 0 if i == 0 else None) for i, p in enumerate(paths)]
+    runs = []
+    for st in (None, store):
+        drivers._key_counter[0] = 0
+        net = SpeakerNet.new(output=1, seed=0, device=cuda_device)
+        fs = list(files)
+        res = run_incremental(net, fs, fm, burn_in_limit=2, conf_threshold=0.8,
+                              show_progress=False, device_store=st)
+        runs.append((fs, net.params, res.decision_margins))
+    (l0, p0, m0), (l1, p1, m1) = runs
+    assert l0 == l1 and m0 == m1
+    for k in p0:
+        assert torch.equal(p0[k], p1[k]), k
+    assert store.stats["host_pack_bytes"] == 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wins, missing = store.gather_partial(paths[:3] + ["absent.wav"], 512)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [r for r, _ in missing] == [3]
+    for r, p in enumerate(paths[:3]):
+        assert torch.equal(wins[r, : len(fm[p])].cpu(), torch.from_numpy(fm[p]))
+
+
+@pytest.mark.cuda
+def test_eval_metrics_with_and_without_store_on_card(cuda_device):
+    paths, fm, store = _store_corpus(cuda_device, seed=6)
+    net = SpeakerNet.new(60, 64, 32, output=3, seed=2, device=cuda_device)
+    embs = batch_clip_embeddings(net, [fm[p] for p in paths])
+    net.set_embeddings([(normalize(np.mean(embs[i::3], axis=0)), 0.9, 0.05)
+                        for i in range(3)])
+    targets = [(p, i % 3) for i, p in enumerate(paths)]
+    want = evaluate(net, fm, targets, 0.5, verbose=False)
+    got = evaluate(net, fm, targets, 0.5, verbose=False, store=store)
+    assert got == want and want["correct"] > 0
+    assert store.stats["host_pack_bytes"] == 0

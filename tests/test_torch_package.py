@@ -41,6 +41,18 @@ def test_module_imports_no_jax_and_no_reference_package(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "runtime/watchdog.py", "runtime/profiler.py", "app/evaluate.py",
+    "app/embedquality.py", "infer/cluster.py",
+])
+def test_ported_modules_are_scanned_and_name_their_reference(module):
+    """The modules ported from the JAX package are among those the import
+    rules scan, and each names the module it ports."""
+    path = PKG / module
+    assert path in MODULES
+    assert f"streamz_tpu/{module}" in path.read_text(encoding="utf-8")
+
+
 def test_importing_every_module_loads_no_jax():
     """A fresh interpreter imports every port module; jax and streamz_tpu
     stay out of sys.modules."""
