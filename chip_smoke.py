@@ -57,7 +57,15 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    what a ``--device cpu`` run prints.  Then the default run again on the
    same corpus without the store and with it, each from key 0 in a fresh
    directory: labels and ``model.npz`` arrays bit-identical to phase 4's;
-   prints the ``discovery`` phase's seconds of all three.
+   prints the ``discovery`` phase's seconds of all three.  Then the default
+   run with ``--encode`` (``[stego-cli]``), from key 0 in a fresh directory:
+   its first labelled clip listed as ``clips/<stem>.mp3``, an arbitrary
+   blob whose ``cache/<stem>.wav`` holds the clip, ``--checksum`` the
+   blob's SHA-512, a 4 KiB payload.  It must print "Hiding ..." and write
+   ``w4_*``/``b4_*``, ``--decode`` must recover the payload exactly, and
+   the labels and every other ``model.npz`` array must equal phase 4's bit
+   for bit (the clip's path read as its cache WAV's); prints the phases'
+   seconds, ``stego`` among them.
 6. The gated vote pipeline (``identify_speaker_list_batch``) on those clips;
    then K7 (bf16 products, as its TPU kernel) on their 70,464 windows
    (capacity 128, ``num_speakers`` 0, 1, 8 and 128, the trained and a fresh
@@ -85,7 +93,18 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    file up to the first whose decision margin is within 1e-3 of a change.
    Then ``--profile traces`` on that reduced corpus on the card: the phase
    report printed and a ``torch.profiler`` trace written that holds K6's
-   kernel.
+   kernel.  Then the steganography codec (``[stego]``): payloads of 64 B,
+   4 KiB, 64 KiB and the 128 KiB cap (a [256, 1,048,576] f32 output layer)
+   encoded on the card and decoded on the host, the bytes equal; prints
+   the steps, the encode's seconds (the loop on the card apart) and the
+   peak device memory.  Then ``train_from_files`` (``[pretrain]``) on 8
+   training clips, 2 epochs, at full width, on the card and on the CPU:
+   ``augment`` on the card equal to the CPU's bit for bit, one launch of
+   the frontend's winner and one of K6 per (file, epoch), each parameter's
+   gap to the CPU's within ``PRETRAIN_CHANGE_TOL`` of the CPU run's change
+   from the initial weights (a run with one (file, epoch) skipped must fail
+   it) and the mean loss within ``PRETRAIN_LOSS_TOL`` relative of the
+   CPU's; prints the milliseconds per (file, epoch) and one step's stages.
 9. The bench twin, ``python -m streamz_tpu_torch.bench`` (``bench.run()``),
    once, counts zeroed and read (the winner's and K7's must move); its JSON
    line is printed.  Then time every kernel per launch with CUDA events
@@ -125,6 +144,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import hashlib
 import io
 import json
 import math
@@ -189,6 +209,26 @@ K7_EXACT = [(60, 512, 256, 128, 1), (60, 512, 256, 128, 63), (60, 512, 256, 128,
             (60, 512, 256, 4096, 70464), (60, 100, 52, 128, 70464), (60, 4096, 2048, 128, 65),
             (60, 4096, 2048, 128, 4096)]
 GPU_VS_CPU_TOL = 1e-3  # features / embeddings / sims / margins, GPU vs CPU
+# The steganography codec's payloads, 64 B to the 128 KiB cap (w3 of
+# [256, 1,048,576] f32 = 1 GiB), and the payload the --encode run hides.
+STEGO_BYTES = (64, 4096, 65536, 131072)
+STEGO_CLI_BYTES = 4096
+# train_from_files on the card against the same call on the CPU (K1 or K2
+# against the plain frontend, K6 against its plain loop, 16 (file, epoch)
+# steps of augment + features + one epoch of chunk SGD at full width, about
+# 2,200 SGD steps): the mean losses within PRETRAIN_LOSS_TOL relative, and
+# every parameter's gap to the CPU run, as a norm, within
+# PRETRAIN_CHANGE_TOL of the norm of the CPU run's change from the initial
+# weights.  A control, the card run with its last (file, epoch) skipped,
+# must fail that gate, or the gate is too loose to see a lost step.
+# Measured on an H100: the card's gaps 1.8e-4 (b3) to 9.2e-3 (w1), the
+# control's 1.5e-2 (w2) to 7.2e-2 (b2); the limit sits between the card's
+# largest and the control's largest, and four of the control's six
+# parameters exceed it.
+PRETRAIN_LOSS_TOL = 1e-3
+PRETRAIN_CHANGE_TOL = 2e-2
+PRETRAIN_CLIPS = 8
+PRETRAIN_EPOCHS = 2
 # Published H100 SXM peaks (NVIDIA data sheet, dense): FP32 on the CUDA
 # cores, TF32 and bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32 = 67e12
@@ -754,13 +794,16 @@ def main() -> int:
     winner = features.autotune_frontend(force=True)
     probe = autotune.probe_times[f"frontend:{kind}"]
     win_kid = KID[winner]
+    spread = autotune.probe_spread[f"frontend:{kind}"]
     print("[probe] 'auto' measured " + ", ".join(
         f"{KID[b]} ({b}) {t / 16 * 1e3:.3f} ms" for b, t in probe.items())
-        + f" per [32, 441600] frontend call (median of 3 runs of 16): the run "
-        f"uses {winner!r} ({win_kid})")
+        + f" per [32, 441600] frontend call (median of 3 runs of 16), run-to-run "
+        f"spread {spread:.2%}: K2 must beat K1 by more; the run uses {winner!r} "
+        f"({win_kid})")
     if FeatureExtractor(device=dev).resolved() != winner:
         fail("'auto' does not resolve to the probe's winner")
     report["probe_ms_per_call"] = {b: t / 16 * 1e3 for b, t in probe.items()}
+    report["probe_spread"] = spread
     report["frontend"] = winner
 
     with tempfile.TemporaryDirectory(prefix="streamz_chip_smoke_") as work:
@@ -946,6 +989,77 @@ def main() -> int:
             fail(f"the default run's store stats {st}: every clip must be resident")
         report["store_discovery_s"] = discovery_s
         report["train_store_stats"] = st
+
+        mark("--encode")
+        # 5e. The default run with --encode, from key 0 in a fresh directory
+        # (as phase 4): its first labelled clip is listed as clips/<stem>.mp3,
+        # an arbitrary blob whose cache/<stem>.wav holds the clip's samples,
+        # and --checksum is the blob's SHA-512.  The run must hide the
+        # payload, and --decode recover it; the labels and every model.npz
+        # array but w4/b4 must equal phase 4's bit for bit, the clip's path
+        # read as its cache WAV's (the encode draws its own generators and
+        # touches only w4/b4).
+        sub = Path(work) / "stego"
+        sub.mkdir()
+        os.chdir(sub)
+        stego_names = write_corpus(train_pcm, spk, LABELLED_PER_SPEAKER, "train")
+        wav_name = stego_names[0]
+        stem = Path(wav_name).stem
+        mp3_name, cache_name = f"clips/{stem}.mp3", f"cache/{stem}.wav"
+        Path("clips").mkdir()
+        Path("cache").mkdir()
+        os.replace(wav_name, cache_name)
+        blob = np.random.default_rng(SEED + 11).bytes(3001)
+        Path(mp3_name).write_bytes(blob)
+        Path(config.TRAIN_FILE_LIST).write_text(
+            Path(config.TRAIN_FILE_LIST).read_text().replace(wav_name, mp3_name, 1))
+        secret = np.random.default_rng(SEED + 12).bytes(STEGO_CLI_BYTES)
+        Path("secret.bin").write_bytes(secret)
+        sha = hashlib.sha512(blob).hexdigest()
+        zero_counts()
+        drivers._key_counter[0] = 0
+        t0 = time.perf_counter()
+        rc, enc_lines, enc_run = run_cli(["--encode", "secret.bin", "--checksum", sha])
+        enc_wall_s = time.perf_counter() - t0
+        enc_counts = read_counts("default run with --encode")
+        hiding = [ln for ln in enc_lines if ln.startswith(("Hiding", "Finished encoding"))]
+        if rc != 0 or len(hiding) != 2 or hiding[0] != "Hiding secret.bin in neural network":
+            fail(f"the default run with --encode: rc {rc}, lines {hiding}")
+        enc_model = dict(np.load(config.MODEL_PATH))
+        stego_keys = {k for k in enc_model if k.startswith(("w4_", "b4_"))}
+        written = Path(config.TRAIN_FILE_LIST).read_text().replace(mp3_name, wav_name)
+
+        def same_entry(k):
+            a, b = enc_model[k], ref_model[k]
+            if k.startswith("speaker_") and k.endswith("_files"):
+                a = np.frombuffer(bytes(a).decode().replace(cache_name, wav_name).encode(),
+                                  np.uint8)
+            return a.dtype == b.dtype and np.array_equal(a, b)
+
+        if len(stego_keys) != 2 * 8 * STEGO_CLI_BYTES:
+            fail(f"model.npz holds {len(stego_keys)} w4/b4 entries, expected "
+                 f"{2 * 8 * STEGO_CLI_BYTES}")
+        if (written != ref_lists or set(enc_model) - stego_keys != set(ref_model)
+                or not all(same_entry(k) for k in ref_model)):
+            fail("the --encode run: labels or model.npz arrays other than w4/b4 differ "
+                 "from phase 4's")
+        rc, dec_lines, _ = run_cli(["--decode", "decoded.bin", "--checksum", sha])
+        if (rc != 0 or f"Decoded {STEGO_CLI_BYTES} bytes" not in dec_lines
+                or Path("decoded.bin").read_bytes() != secret):
+            fail(f"--decode after --encode: rc {rc}, {dec_lines}")
+        config.set_checksum_constant_override(None)
+        ep = enc_run["phase_seconds"]
+        print(f"[stego-cli] {' / '.join(hiding)}; model.npz has {len(stego_keys)} w4/b4 "
+              f"entries, its other arrays and the labels bit-identical to phase 4's; "
+              f"--decode recovered all {STEGO_CLI_BYTES} bytes; launches {enc_counts}; "
+              "phases " + ", ".join(f"{k} {v:.3f} s" for k, v in ep.items())
+              + f" (phase 4: stego -, discovery {phases['discovery']:.3f} s); "
+              f"wall {enc_wall_s:.3f} s | {card}")
+        if enc_counts["K6"] != len(names) or enc_counts[win_kid] < 1 or enc_counts["K5"] < 1:
+            fail(f"the --encode run's launches {enc_counts}")
+        report["stego_cli"] = {"phase_s": ep, "wall_s": enc_wall_s, "launches": enc_counts,
+                               "w4_b4_entries": len(stego_keys)}
+        os.chdir(work)
 
         mark("votes")
         # 6. The vote pipeline on the same clips.
@@ -1195,6 +1309,192 @@ def main() -> int:
               f"{text.count('file_train_kernel')} mentions of file_train_kernel, K6 "
               f"launches {prof_launches['K6']}; " + " | ".join(x.strip() for x in phase_lines))
         os.chdir(HERE)
+
+    mark("stego codec")
+    # 8c. The steganography codec on the card: payloads of 64 B to the 128
+    # KiB cap, each encoded (host draws, the block loop on the card) and
+    # decoded on the host; the bytes must match exactly.
+    from streamz_tpu_torch.stego import codec
+    loop_s = []
+    real_loop = codec._train_bits_loop
+
+    def timed_loop(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real_loop(*a, **k)
+        torch.cuda.synchronize()
+        loop_s.append(time.perf_counter() - t0)
+        return got
+
+    codec._train_bits_loop = timed_loop
+    stego_rows = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="streamz_chip_smoke_stego_") as work:
+            for nbytes in STEGO_BYTES:
+                payload = np.random.default_rng(SEED + nbytes).bytes(nbytes)
+                path = Path(work) / f"payload_{nbytes}.bin"
+                path.write_bytes(payload)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    enc = codec.encode_file(str(path), device=dev)
+                torch.cuda.synchronize()
+                enc_s = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                held = torch.cuda.memory_allocated() - base
+                if held > 2 ** 20:
+                    fail(f"stego: the encoded net holds {held / 2 ** 20:.1f} MiB on the card")
+                enc_steps = int(buf.getvalue().split("(")[-1].split()[0])
+                t0 = time.perf_counter()
+                got = codec.extract_file_from_classifier(enc)
+                dec_s = time.perf_counter() - t0
+                del enc
+                if got != payload:
+                    fail(f"stego: the {nbytes}-byte payload decodes to other bytes")
+                w3_mib = 256 * 8 * nbytes * 4 / 2 ** 20
+                stego_rows[nbytes] = {"steps": enc_steps, "encode_s": enc_s, "loop_s": loop_s[-1],
+                                      "decode_s": dec_s, "peak_device_mib": peak / 2 ** 20,
+                                      "w3_mib": w3_mib}
+                print(f"[stego] {nbytes} B ({8 * nbytes} bits): {enc_steps} steps, encode "
+                      f"{enc_s:.3f} s (the loop on the card {loop_s[-1]:.4f} s), decode on "
+                      f"the host {dec_s:.3f} s, bytes equal; peak device memory "
+                      f"{peak / 2 ** 20:.1f} MiB (w3 {w3_mib:.1f} MiB) | {card}")
+    finally:
+        codec._train_bits_loop = real_loop
+    report["stego"] = stego_rows
+
+    mark("train_from_files")
+    # 8d. train_from_files on the card: 8 training clips (one a speaker), 2
+    # epochs, full width.  augment on the card must equal augment on the
+    # CPU bit for bit; each (file, epoch) is one launch of the frontend's
+    # winner and one of K6; the result is held to the same call on the CPU
+    # (the plain versions).
+    from streamz_tpu_torch.dsp.augment import augment
+    from streamz_tpu_torch.nn.model import SpeakerNet
+    picks = [k * CLIPS_PER_SPEAKER for k in range(PRETRAIN_CLIPS)]
+    aug_key = prng.PRNGKey(SEED + 3)
+    aug_card = augment(aug_key, torch.from_numpy(train_pcm[picks[0]]).to(dev)).cpu()
+    aug_host = augment(aug_key, torch.from_numpy(train_pcm[picks[0]]))
+    if not torch.equal(aug_card.view(torch.int32), aug_host.view(torch.int32)):
+        fail("augment on the card differs from augment on the CPU")
+    pre = {}
+    with tempfile.TemporaryDirectory(prefix="streamz_chip_smoke_pretrain_") as work:
+        os.chdir(work)
+        files = []
+        for i in picks:
+            files.append((f"clip_{i:02d}.wav", int(spk[i])))
+            wav.write_wav(files[-1][0], train_pcm[i])
+        steps_ = PRETRAIN_CLIPS * PRETRAIN_EPOCHS
+        real_epoch = drivers.pretrain_network
+        control_epochs = []
+
+        def skip_last(*a, **k):
+            # The control: train_from_files with its last (file, epoch) left
+            # out, all else as the card run.
+            control_epochs.append(1)
+            return 0.0 if len(control_epochs) == steps_ else real_epoch(*a, **k)
+
+        for run in ("cuda", "cpu", "control"):
+            device = "cpu" if run == "cpu" else "cuda"
+            pnet = SpeakerNet.new(output=N_SPEAKERS, seed=SEED, device=device)
+            if run == "cpu":
+                init = {k: v.detach().clone() for k, v in pnet.params.items()}
+            ex = FeatureExtractor(device=device)
+            if run == "control":
+                drivers.pretrain_network = skip_last
+            try:
+                zero_counts()
+                t0 = time.perf_counter()
+                mean = drivers.train_from_files(
+                    pnet, files, N_SPEAKERS, PRETRAIN_EPOCHS, 0.05, config.DEFAULT_DROPOUT,
+                    config.BATCH_SIZE, ex, key=prng.PRNGKey(SEED))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                elapsed = time.perf_counter() - t0
+            finally:
+                drivers.pretrain_network = real_epoch
+            pre[run] = (pnet, mean, elapsed,
+                        None if run == "control" else read_counts(f"train_from_files on {run}"))
+        os.chdir(HERE)
+    (gnet, gmean, gs, gcounts), (cnet, cmean, cs, _) = pre["cuda"], pre["cpu"]
+    if gcounts[win_kid] != steps_ or gcounts["K6"] != steps_:
+        fail(f"train_from_files launched {win_kid} {gcounts[win_kid]} and K6 "
+             f"{gcounts['K6']} times, expected {steps_} each")
+    change = {k: float((cnet.params[k] - init[k]).norm()) for k in cnet.params}
+    if min(change.values()) == 0.0:
+        fail(f"train_from_files on the CPU left a parameter unchanged: {change}")
+
+    def gap_to_cpu(net):
+        # Each parameter's gap to the CPU run over the CPU run's change.
+        return {k: float((net.params[k].cpu() - cnet.params[k]).norm()) / change[k]
+                for k in cnet.params}
+
+    p_gap, ctrl_gap = gap_to_cpu(gnet), gap_to_cpu(pre["control"][0])
+    diffs = {k: gnet.params[k].cpu() - cnet.params[k] for k in gnet.params}
+    p_err = max(float(d.abs().max()) for d in diffs.values())
+    # Where the largest single-weight gap sits, the CPU run's value and its
+    # change from the initial weight there.
+    at_k = max(diffs, key=lambda k: float(diffs[k].abs().max()))
+    at_i = int(diffs[at_k].abs().argmax())
+    at_idx = tuple(int(i) for i in np.unravel_index(at_i, tuple(diffs[at_k].shape)))
+    at_cpu = float(cnet.params[at_k].reshape(-1)[at_i])
+    at_change = at_cpu - float(init[at_k].reshape(-1)[at_i])
+    l_err = abs(gmean - cmean) / max(abs(cmean), 1e-12)
+    finite = all(bool(torch.isfinite(v).all()) for v in gnet.params.values())
+    # Where a (file, epoch) step's time goes on the card: one clip, its
+    # stages each ended by a synchronisation, best of three.
+    clip0 = train_pcm[picks[0]]
+    ex = FeatureExtractor(device=dev)
+    pcm_dev = torch.from_numpy(clip0).to(dev, torch.float32)
+    stage_ms = {"augment": [], "features": [], "trainer": []}
+    for r in range(3):
+        k_aug, k_train = prng.split(prng.fold_in(prng.PRNGKey(SEED).to(dev), r))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug = augment(k_aug, pcm_dev).to(torch.int16).to(torch.float32) / 32767.0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wins = ex.extract_device(aug)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        drivers.pretrain_from_features(gnet, wins, int(spk[picks[0]]), N_SPEAKERS, 1, 0.05,
+                                       config.DEFAULT_DROPOUT, config.BATCH_SIZE, key=k_train)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for name, a, b in (("augment", t0, t1), ("features", t1, t2), ("trainer", t2, t3)):
+            stage_ms[name].append((b - a) * 1e3)
+    stage_ms = {k: min(v) for k, v in stage_ms.items()}
+    print(f"[pretrain] train_from_files, {PRETRAIN_CLIPS} clips x {PRETRAIN_EPOCHS} epochs "
+          f"at 60x512x256x{gnet.capacity}: launches {win_kid} {gcounts[win_kid]}, K6 "
+          f"{gcounts['K6']}; card {gs / steps_ * 1e3:.1f} ms per (file, epoch) (the file "
+          f"loads included), CPU {cs / steps_ * 1e3:.1f} ms; one step's stages on the card, "
+          "best of 3: " + ", ".join(f"{k} {v:.2f} ms" for k, v in stage_ms.items())
+          + f"; mean loss card {gmean:.6f}, CPU {cmean:.6f} (relative {l_err:.3e}, bound "
+          f"{PRETRAIN_LOSS_TOL:g}); each parameter's gap to the CPU over the CPU's change "
+          f"from init (bound {PRETRAIN_CHANGE_TOL:g}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in p_gap.items())
+          + "; the control with its last (file, epoch) skipped: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in ctrl_gap.items())
+          + f"; largest single gap {p_err:.3e} at {at_k}{list(at_idx)} (CPU value "
+          f"{at_cpu:.4f}, its change from init {at_change:.4f}); augment card == CPU "
+          f"bit for bit on {train_pcm.shape[1]} samples | {card}")
+    if (not finite or max(p_gap.values()) > PRETRAIN_CHANGE_TOL
+            or l_err > PRETRAIN_LOSS_TOL):
+        fail(f"train_from_files on the card against the CPU: parameter gaps {p_gap}, "
+             f"loss {l_err:.3e}")
+    if max(ctrl_gap.values()) <= PRETRAIN_CHANGE_TOL:
+        fail(f"the [pretrain] gate passes a run with its last (file, epoch) skipped: "
+             f"{ctrl_gap}")
+    report["pretrain"] = {"launches": gcounts, "card_s": gs, "cpu_s": cs,
+                          "card_ms_per_step": gs / steps_ * 1e3,
+                          "cpu_ms_per_step": cs / steps_ * 1e3, "stage_ms": stage_ms,
+                          "mean_loss": [gmean, cmean], "param_max_abs_err": p_err,
+                          "param_max_abs_err_at": [at_k, list(at_idx), at_cpu, at_change],
+                          "param_gap_over_change": p_gap, "control_gap_over_change": ctrl_gap,
+                          "change_norm": change, "loss_rel_err": l_err}
 
     mark("bench twin")
     # 9. The bench twin, once, as a user runs it; then timing with CUDA

@@ -6,6 +6,8 @@
                               [--check-embeddings] [--cluster-embeddings <k>]
                               [--force] [--retrain] [--no-autotune]
                               [--profile [dir]] [--device cuda|cpu]
+                              [--encode <file>] [--checksum <hex>]
+  python -m streamz_tpu_torch --decode <out> [--checksum <hex>]
   python -m streamz_tpu_torch --identify <file>... [--threshold <v>]
                               [--no-autotune] [--device cuda|cpu]
 
@@ -30,6 +32,16 @@ speakers' similarity stats (``src/main.rs:243-279``) and
 ``model.npz`` with the adaptive cosine gate (``src/lib.rs:1634-1661``),
 printing one verdict line per clip.
 
+``--encode <file>`` hides a file in the trained model
+(``src/main.rs:671-701``): when an MP3 of ``train_files.txt`` has the
+SHA-512 of the active checksum (``--checksum <hex>`` overrides the built-in
+constant), the default run prints "Hiding <file> in neural network" after
+the corpus phase, trains the steganography layer on the card and stores it
+in ``model.npz`` as ``w4``/``b4``; a failed encode is reported and training
+carries on.  ``--decode <out>`` reads ``model.npz``, recovers the hidden
+bytes with the same checksum and writes them to ``<out>``, before and
+instead of any training (``src/main.rs:450-469``).
+
 Every mode runs on ``cuda`` unless ``--device cpu`` is given, and fails
 when CUDA is missing rather than falling back to the CPU.  On the card the
 frontend is the measured winner of K1 and K2 (``dsp/features.py``), probed
@@ -37,9 +49,8 @@ at first use and cached per card; ``--no-autotune`` skips the probe, so a
 cold cache takes K1.  The frontend's outputs stay on the card in a
 ``DeviceFeatureStore`` for the discovery loop, ``--eval``, ``--identify``
 and finalize; ``STREAMZ_STORE_MAX_MB`` caps it (default 4096, 0 or less
-turns it off).  The other modes of the JAX package's CLI
-(``--encode``/``--decode``/``--checksum``, ``--serve``, the multi-host
-flags) are not yet ported: they print so and return 2.
+turns it off).  The other modes of the JAX package's CLI (``--serve``, the
+multi-host flags) are not yet ported: they print so and return 2.
 """
 
 from __future__ import annotations
@@ -70,9 +81,11 @@ from streamz_tpu_torch.nn import checkpoint
 from streamz_tpu_torch.nn.model import SpeakerNet
 from streamz_tpu_torch.runtime.profiler import PhaseTimer, trace
 from streamz_tpu_torch.runtime.watchdog import watchdog
+from streamz_tpu_torch.stego import codec
 
 _VALUE_FLAGS = ("--threshold", "--device", "--burn-in-limit", "--max-speakers",
-                "--eval-split", "--cluster-embeddings")
+                "--eval-split", "--cluster-embeddings", "--encode", "--decode",
+                "--checksum")
 _SWITCHES = ("--identify", "--force", "--retrain", "--no-cache-wav", "--no-autotune",
              "--eval", "--check-embeddings", "--profile")
 
@@ -166,10 +179,10 @@ def build_feature_map(
 def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int:
     """Run the CLI on ``argv``.  A default run or ``--eval`` fills
     ``report``, when given, with ``phase_seconds`` (ingest, features, then
-    corpus, discovery and finalize, or eval), ``store_stats`` (the
-    ``DeviceFeatureStore``'s, None without one), and for a default run
-    ``decision_margins`` (one per processed file, app/device_loop.py), for
-    ``--eval`` ``metrics``."""
+    corpus, stego when it encodes, discovery and finalize, or eval),
+    ``store_stats`` (the ``DeviceFeatureStore``'s, None without one), and
+    for a default run ``decision_margins`` (one per processed file,
+    app/device_loop.py), for ``--eval`` ``metrics``."""
     args = list(sys.argv[1:] if argv is None else argv)
     if "--help" in args or "-h" in args:
         try:
@@ -203,6 +216,9 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
     burn_in_limit = _parse_int(args, "--burn-in-limit")
     max_speakers = _parse_int(args, "--max-speakers")
     cluster_k = _parse_int(args, "--cluster-embeddings")
+    encode_path = _flag_value(args, "--encode")
+    decode_path = _flag_value(args, "--decode")
+    checksum_arg = _flag_value(args, "--checksum")
     device = _flag_value(args, "--device") or "cuda"
     config.set_wav_cache_enabled("--no-cache-wav" not in args)
     if "--no-autotune" in args:
@@ -216,6 +232,10 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
         maybe = _flag_value(args, "--profile", warn=False)
         if maybe and not maybe.startswith("--"):
             profile_dir = maybe
+    if checksum_arg:
+        config.set_checksum_constant_override(checksum_arg)
+    # Fresh trigger state per invocation (the reference is a fresh process).
+    audio.CHECKSUM_TRIGGERED.clear()
     try:
         extractor = FeatureExtractor(device=device)
     except (RuntimeError, ValueError) as e:  # no CUDA, or an unknown device
@@ -254,6 +274,12 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
             print(f"Speaker {i} -> cluster {lab}")
         return 0
 
+    if decode_path:
+        # --decode always decodes standalone and exits before any training
+        # (src/main.rs:450-469; the in-training decode branch at :672-685 is
+        # unreachable because of this early return).
+        return _standalone_decode(decode_path, dev)
+
     if identify_paths:
         return _identify_mode(identify_paths, threshold, extractor, timer)
 
@@ -261,6 +287,9 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
     if not train_files:
         print(f"{config.TRAIN_FILE_LIST} is empty", file=sys.stderr)
         return 1
+    # The list as read: train_files.txt is written back with these paths,
+    # not the cache WAVs the precache rewrites MP3 entries to.
+    original_paths = [p for p, _ in train_files]
     target_files = fl.load_target_files(config.TARGET_FILE_LIST)
     eval_mode = "--eval" in args
     audio.precache_mp3_files(train_files)
@@ -272,10 +301,10 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
             return _eval_mode(train_files, target_files, eval_split, threshold,
                               extractor, timer, report, profile=profile)
         return _train_mode(
-            train_files, extractor, threshold, timer,
+            train_files, original_paths, extractor, threshold, timer,
             burn_in_limit=burn_in_limit, max_speakers=max_speakers,
             force_retrain="--force" in args or "--retrain" in args,
-            report=report, profile=profile,
+            encode_path=encode_path, report=report, profile=profile,
         )
 
 
@@ -325,22 +354,22 @@ def _eval_mode(train_files, target_files, eval_split: float, threshold: float,
     return 0
 
 
-def _train_mode(train_files, extractor: FeatureExtractor, conf_threshold: float,
-                timer: PhaseTimer, *, burn_in_limit: Optional[int],
-                max_speakers: Optional[int], force_retrain: bool, report: dict,
-                profile: bool) -> int:
+def _train_mode(train_files, original_paths: List[str], extractor: FeatureExtractor,
+                conf_threshold: float, timer: PhaseTimer, *, burn_in_limit: Optional[int],
+                max_speakers: Optional[int], force_retrain: bool,
+                encode_path: Optional[str], report: dict, profile: bool) -> int:
     """The default run (``streamz_tpu/cli.py:335-554``): ingest, the
-    frontend (K1 or K2, whichever 'auto' measured faster) with its outputs
-    kept on the card, corpus training of the labelled files (K5), the
-    discovery loop (K6) fed from the card, then centroids, ``model.npz``
-    and the lists."""
-    original_paths = [p for p, _ in train_files]
-    feature_map, store = build_feature_map(original_paths, extractor, timer)
+    frontend (the 'auto' choice of K1 or K2) with its outputs kept on the
+    card, corpus training of the labelled files (K5), the steganography
+    encode when triggered, the discovery loop (K6) fed from the card, then
+    centroids, ``model.npz`` and the lists."""
+    feature_map, store = build_feature_map([p for p, _ in train_files], extractor, timer)
     report["store_stats"] = None if store is None else store.stats
     try:
         net, result = _train(train_files, feature_map, store, extractor, conf_threshold,
                              timer, burn_in_limit=burn_in_limit,
-                             max_speakers=max_speakers, force_retrain=force_retrain)
+                             max_speakers=max_speakers, force_retrain=force_retrain,
+                             encode_path=encode_path)
         report["decision_margins"] = result.decision_margins
         with timer.phase("finalize"):
             finalize_and_save(net, result, feature_map=feature_map, store=store)
@@ -368,9 +397,10 @@ def _train_mode(train_files, extractor: FeatureExtractor, conf_threshold: float,
 
 
 def _train(train_files, feature_map, store, extractor, conf_threshold, timer, *,
-           burn_in_limit, max_speakers, force_retrain):
-    """Load or train the net on the corpus, then the discovery loop over
-    every file; returns (net, the loop's result)."""
+           burn_in_limit, max_speakers, force_retrain, encode_path):
+    """Load or train the net on the corpus, hide ``encode_path`` in it when
+    the checksum trigger fired, then the discovery loop over every file;
+    returns (net, the loop's result)."""
     dev = extractor.device
     for p, _ in train_files:
         if p not in feature_map:
@@ -416,6 +446,16 @@ def _train(train_files, feature_map, store, extractor, conf_threshold, timer, *,
                 net.record_training_file(c, p)
             if losses:
                 print(f"Initial training loss: {float(np.mean(losses)):.4f}")
+
+    if audio.CHECKSUM_TRIGGERED.is_set() and encode_path:
+        print(f"Hiding {encode_path} in neural network")
+        with timer.phase("stego"):
+            try:
+                enc_net = codec.encode_file(encode_path, device=dev)
+                net.set_encoding_layer(*enc_net.encoding_layer())
+            except Exception as e:
+                print(f"Encoding failed: {e}", file=sys.stderr)
+        # training continues after encoding (src/main.rs:699)
 
     with timer.phase("discovery"):
         result = run_incremental(
@@ -481,6 +521,25 @@ def _identify_mode(paths: List[str], threshold: float, extractor: FeatureExtract
             )
     if not present:
         print("No input file could be loaded", file=sys.stderr)
+        return 1
+    return 0
+
+
+def _standalone_decode(out_path: str, dev) -> int:
+    """``--decode``: the payload hidden in ``model.npz`` to ``out_path``."""
+    try:
+        net = checkpoint.load(config.MODEL_PATH, device=dev)
+    except Exception as e:
+        print(f"Failed to load model: {e}", file=sys.stderr)
+        return 1
+    print(f"Loaded model from {config.MODEL_PATH}")
+    data = codec.extract_file_from_classifier(net)
+    try:
+        with open(out_path, "wb") as f:
+            f.write(data)
+        print(f"Decoded {len(data)} bytes")
+    except OSError as e:
+        print(f"Failed to create {out_path}: {e}", file=sys.stderr)
         return 1
     return 0
 

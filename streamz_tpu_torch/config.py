@@ -2,8 +2,8 @@
 
 The same numerology, model widths, file names and cache toggles as
 ``streamz_tpu/config.py`` so that feature windows, model shapes, file
-formats and training runs stay interchangeable between the two packages.
-The steganography constants arrive with the ``stego`` slice.
+formats, training runs and steganography keys stay interchangeable between
+the two packages.
 
 - sample rate / window / mel / MFCC numerology: reference
   ``streamz-rs/src/lib.rs:25-36`` (hop = WINDOW_SIZE/2 at ``src/lib.rs:288``)
@@ -58,11 +58,44 @@ WAV_CACHE_DIR: str = "cache"
 FEATURE_CACHE_DIR: str = "feature_cache"
 
 # ---------------------------------------------------------------------------
-# Runtime-toggleable WAV cache switch (thread-safe), mirroring the
-# reference's `WAV_CACHE_ENABLED` static (src/lib.rs:67-80).
+# Steganography (src/lib.rs:39-58)
+# ---------------------------------------------------------------------------
+CHECKSUM_CONSTANT: str = (
+    "4273195488fa01ce67a35d4b90ef3312a5b6c7d8e9f0112233445566778899aa"
+    "bbccddeeff102030405060708090a0b0c0d0e0f102132435465768798a9bacbd"
+)
+STEGO_MAX_EPOCHS: int = 10_000_000  # src/lib.rs:1743
+STEGO_LR: float = 0.5  # src/lib.rs:1754
+# Payload bound for encode_file.  The trainer's output layer is
+# [h2=256, ~8·len] f32, 8192 bytes of weights per payload byte, and the
+# block loop on the card keeps two such arrays live (w3 and its rank-1
+# update): 128 KiB gives a w3 of 1 GiB and a peak of 2,064 MiB on an NVIDIA
+# H100 80GB HBM3 (700 W; chip_smoke.py's [stego] line).  Past this,
+# encode_file fails fast with the sizing math.  (The reference's only bound
+# is its 10M-epoch budget, src/lib.rs:1717-1772.)
+STEGO_MAX_PAYLOAD_BYTES: int = 128 * 1024
+
+# ---------------------------------------------------------------------------
+# Runtime-toggleable globals (thread-safe), mirroring the reference's
+# `CHECKSUM_OVERRIDE` (src/lib.rs:43-58) and `WAV_CACHE_ENABLED`
+# (src/lib.rs:67-80) statics.
 # ---------------------------------------------------------------------------
 _state_lock = threading.Lock()
+_checksum_override: str | None = None
 _wav_cache_enabled: bool = True
+
+
+def set_checksum_constant_override(value: str) -> None:
+    """Override the active checksum constant (src/lib.rs:46-49)."""
+    global _checksum_override
+    with _state_lock:
+        _checksum_override = value
+
+
+def get_checksum_constant() -> str:
+    """Active checksum constant, honoring overrides (src/lib.rs:52-58)."""
+    with _state_lock:
+        return _checksum_override if _checksum_override is not None else CHECKSUM_CONSTANT
 
 
 def set_wav_cache_enabled(enabled: bool) -> None:

@@ -15,8 +15,9 @@ the card (:mod:`streamz_tpu_torch.dsp.mfcc_kernel`):
   package's ``'jax'`` backend; it runs on the card only when asked for by
   name;
 - ``'numpy'``: the host golden spec (:mod:`streamz_tpu_torch.dsp.mfcc_ref`);
-- ``'auto'`` (default): on a card, the measured winner of K2 against K1
-  (:func:`autotune_frontend`, cached per card by
+- ``'auto'`` (default): on a card, K1 unless K2 measures faster by more
+  than the probe's run-to-run spread (:func:`autotune_frontend`, cached
+  per card by
   :mod:`streamz_tpu_torch.runtime.autotune`); on the CPU, ``'plain'``.
 
 A kernel backend on a CPU device runs its kernel's plain version, since
@@ -40,7 +41,7 @@ from streamz_tpu_torch.device import resolve_device
 from streamz_tpu_torch.dsp import mfcc, mfcc_kernel, mfcc_ref
 from streamz_tpu_torch.io import audio
 from streamz_tpu_torch.runtime import autotune
-from streamz_tpu_torch.runtime.measure import chain_timer
+from streamz_tpu_torch.runtime.measure import chain_times
 
 R = TypeVar("R")
 
@@ -60,11 +61,12 @@ def _core_for(backend: str) -> mfcc.Core:
     return _CORES[backend]
 
 
-def _time_frontend(core, pcm, n_samples, iters: int = 8) -> float:
-    """Median-of-3 device seconds of ``iters`` frontend calls (the shared
-    timer of :mod:`streamz_tpu_torch.runtime.measure`)."""
+def _time_frontend(core, pcm, n_samples, iters: int = 8) -> List[float]:
+    """The device seconds of each of 3 runs of ``iters`` frontend calls (the
+    shared timer of :mod:`streamz_tpu_torch.runtime.measure`); the probe's
+    time is their median."""
     with torch.inference_mode():
-        return chain_timer(core, pcm, n_samples, iters=iters) * iters
+        return [t * iters for t in chain_times(core, pcm, n_samples, iters=iters)]
 
 
 @lru_cache(maxsize=None)
@@ -79,9 +81,12 @@ def _probe_versions() -> tuple:
 
 def autotune_frontend(force: bool = False) -> str:
     """Measure K2 (``'pallas_v3'``) against K1 (``'pallas_v4'``) on this
-    card and return the winner; a
-    cold cache with probing disabled gives ``'pallas_v4'``.  Without a card
-    ``'plain'``, without probing.  Cached in-process and on disk per card."""
+    card and return the winner.  K1 is the static default, the TPU
+    package's frontend: K2 wins only when its median is faster than K1's by
+    more than the probe's run-to-run spread (the runs of both candidates),
+    and that spread is cached with the decision.  A cold cache with probing
+    disabled gives ``'pallas_v4'``.  Without a card ``'plain'``, without
+    probing.  Cached in-process and on disk per card."""
     # The JAX package's probe: 32 clips x 10 s of N(0, 0.1) noise from seed
     # 0, 16 calls per timing, median of 3.  The input is built on the first
     # probe and shared by both candidates.
@@ -149,6 +154,16 @@ class FeatureExtractor:
     def extract(self, samples: np.ndarray) -> np.ndarray:
         """PCM (i16 or f32) → [n_windows, 60] float32."""
         return self.extract_batch([samples])[0]
+
+    def extract_device(self, pcm: torch.Tensor) -> torch.Tensor:
+        """One clip on this extractor's device, f32 at the [-1, 1] scale →
+        [n_windows, 60] on the device; the features :meth:`extract` gives
+        for the same samples.  The ``'numpy'`` backend computes on the host
+        and has no device form."""
+        if self.backend == "numpy":
+            raise ValueError("the 'numpy' backend computes on the host; use extract")
+        return mfcc.extract_features_device(pcm.to(self.device),
+                                            _core_for(self.resolved()))
 
     def extract_batch(
         self, clips: Sequence[np.ndarray],

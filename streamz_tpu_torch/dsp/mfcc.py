@@ -149,6 +149,21 @@ def _to_f32(samples: np.ndarray) -> np.ndarray:
     return samples.astype(np.float32)
 
 
+def extract_features_device(pcm: torch.Tensor, core: Optional[Core] = None) -> torch.Tensor:
+    """One clip already on its device, f32 at the [-1, 1] scale ([T]) →
+    [n_windows, 60] on that device: zero-padded to its length bucket as
+    :func:`extract_features_batch` pads it, so both give the same features
+    for the same samples."""
+    core = core or mfcc_features
+    n = int(pcm.shape[0])
+    batch = torch.zeros((1, _bucket_len(n)), dtype=torch.float32, device=pcm.device)
+    batch[0, :n] = pcm
+    lens = torch.full((1,), n, dtype=torch.int64, device=pcm.device)
+    with torch.inference_mode():
+        feats = core(batch, lens)
+    return feats[0, : window_count_host(n)].clone()
+
+
 def extract_features(
     samples: np.ndarray, core: Optional[Core] = None, device=None
 ) -> np.ndarray:

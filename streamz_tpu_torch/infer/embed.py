@@ -44,6 +44,9 @@ def average_vectors(vectors) -> np.ndarray:
     return normalize(np.mean(vectors, axis=0))
 
 
+average_features = average_vectors  # src/lib.rs:162-164
+
+
 def _fembed_mean_batch(
     params: Params, windows: torch.Tensor, n_valid: torch.Tensor
 ) -> torch.Tensor:

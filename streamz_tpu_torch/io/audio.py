@@ -1,16 +1,17 @@
 """Host-side audio ingest: extension dispatch, downmix, resample, caching.
 
-The port's copy of the ``streamz_tpu/io/audio.py`` contracts that the
-``--identify`` slice needs:
+The port's copy of the ``streamz_tpu/io/audio.py`` contracts:
 
-- ``load_and_resample_file`` (``streamz-rs/src/lib.rs:509-538``)
+- ``load_wav_samples`` and ``load_mp3_samples`` (``streamz-rs/src/lib.rs:401-444``)
+- ``load_and_resample_file`` (``src/lib.rs:509-538``)
 - ``load_audio_samples`` with the ``cache/<stem>.wav`` MP3 cache
   (``src/lib.rs:448-488``)
+- ``audio_metadata``, including its quirk of always reporting 44100
+  (``src/lib.rs:492-505``)
 - ``batch_resample`` parallel loader that silently drops failures
   (``src/lib.rs:541-547``), on a Python thread pool
-- ``cache_mp3_as_wav``/``precache_mp3_files``/``precache_target_files``
-  (``src/main.rs:138-214``), without the steganography checksum trigger,
-  which arrives with the ``stego`` slice
+- ``cache_mp3_as_wav``/``precache_mp3_files``/``precache_target_files`` and
+  the SHA-512 steganography trigger (``src/main.rs:138-214``)
 - feature cache path scheme (``src/lib.rs:550-579``)
 
 The JAX package also has a C++ batch-ingest runtime for ``batch_resample``,
@@ -19,7 +20,9 @@ bit-identical to the thread-pool path; it is not ported yet.
 
 from __future__ import annotations
 
+import hashlib
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, Optional, Tuple
@@ -30,6 +33,10 @@ from streamz_tpu_torch import config
 from streamz_tpu_torch.dsp.resample import resample_to_44100
 from streamz_tpu_torch.io import mp3 as mp3io
 from streamz_tpu_torch.io import wav as wavio
+
+# Set when an ingested MP3's SHA-512 matches the active checksum constant
+# (src/main.rs:39, :185-198).
+CHECKSUM_TRIGGERED = threading.Event()
 
 
 def i16_to_f32(samples: np.ndarray) -> np.ndarray:
@@ -54,6 +61,16 @@ def downmix_to_mono(samples: np.ndarray, channels: int) -> np.ndarray:
         mixed = np.concatenate([mixed, np.trunc(
             tail.astype(np.int32).sum(keepdims=True) / len(tail)).astype(np.int16)])
     return mixed
+
+
+def load_wav_samples(path: str) -> Tuple[np.ndarray, int, int]:
+    """16-bit-only WAV load (src/lib.rs:401-412)."""
+    return wavio.read_wav(path)
+
+
+def load_mp3_samples(path: str) -> Tuple[np.ndarray, int, int]:
+    """MP3 decode; first frame fixes rate/channels (src/lib.rs:416-444)."""
+    return mp3io.load_mp3_samples(path)
 
 
 def load_and_resample_file(path: str) -> Tuple[str, np.ndarray]:
@@ -86,6 +103,16 @@ def load_audio_samples(path: str) -> np.ndarray:
     return load_and_resample_file(path)[1]
 
 
+def audio_metadata(path: str) -> Tuple[int, int]:
+    """(sample_rate, bits) of a file; preserved quirk: the reference always
+    reports DEFAULT_SAMPLE_RATE for the rate (src/lib.rs:492-505)."""
+    if path.lower().endswith(".mp3"):
+        mp3io.mp3_metadata(path)  # validates decodability
+        return config.DEFAULT_SAMPLE_RATE, 16
+    _, bits, _ = wavio.wav_spec(path)
+    return config.DEFAULT_SAMPLE_RATE, bits
+
+
 def batch_resample(
     paths: List[str], max_workers: Optional[int] = None
 ) -> List[Tuple[str, np.ndarray]]:
@@ -106,9 +133,21 @@ def batch_resample(
     return [r for r in results if r is not None]
 
 
+def _check_stego_trigger(path: str) -> None:
+    try:
+        with open(path, "rb") as f:
+            digest = hashlib.sha512(f.read()).hexdigest()
+        if digest == config.get_checksum_constant():
+            CHECKSUM_TRIGGERED.set()
+    except OSError:
+        pass
+
+
 def cache_mp3_as_wav(original: str) -> Optional[str]:
     """Convert an MP3 to ``cache/<stem>.wav`` and return the new path
-    (src/main.rs:138-200); None when the conversion fails."""
+    (src/main.rs:138-200); None when the conversion fails.  Also fires the
+    SHA-512 stego trigger on the MP3's own bytes, after a conversion or
+    when the cached WAV exists already."""
     if not original.lower().endswith(".mp3"):
         return original
     os.makedirs(config.WAV_CACHE_DIR, exist_ok=True)
@@ -122,6 +161,7 @@ def cache_mp3_as_wav(original: str) -> Optional[str]:
             if cached.exists():
                 cached.unlink()
             return None
+    _check_stego_trigger(original)
     return str(cached)
 
 

@@ -140,3 +140,26 @@ def load_mp3_samples(path: str) -> Tuple[np.ndarray, int, int]:
         lib.mpg123_close(handle)
         lib.mpg123_delete(handle)
 
+
+def mp3_metadata(path: str) -> Tuple[int, int]:
+    """Return (sample_rate, channels) of the first frame without full decode."""
+    lib = _load_lib()
+    err = ctypes.c_int(0)
+    handle = lib.mpg123_new(None, ctypes.byref(err))
+    if not handle:
+        raise Mp3Error("mpg123_new failed")
+    try:
+        if lib.mpg123_open(handle, path.encode()) != _MPG123_OK:
+            raise Mp3Error(f"{path}: open failed")
+        rate = ctypes.c_long(0)
+        channels = ctypes.c_int(0)
+        encoding = ctypes.c_int(0)
+        rc = lib.mpg123_getformat(
+            handle, ctypes.byref(rate), ctypes.byref(channels), ctypes.byref(encoding)
+        )
+        if rc != _MPG123_OK or rate.value == 0:
+            raise Mp3Error("Unable to decode MP3")
+        return int(rate.value), int(channels.value)
+    finally:
+        lib.mpg123_close(handle)
+        lib.mpg123_delete(handle)

@@ -102,29 +102,54 @@ def save(net: SpeakerNet, path: str) -> None:
 _DEFAULT_MAX_ENTRY_BYTES = 4 << 30
 
 
-def _max_entry_bytes() -> int:
-    """The per-entry cap, read at call time; a malformed override raises a
-    ValueError naming the variable."""
-    raw = os.environ.get("STREAMZ_CHECKPOINT_MAX_ENTRY_BYTES")
+def _env_bytes(name: str, default: int) -> int:
+    """A byte cap from the environment, read at call time; a malformed
+    override raises a ValueError naming the variable."""
+    raw = os.environ.get(name)
     if raw is None:
-        return _DEFAULT_MAX_ENTRY_BYTES
+        return default
     try:
         return int(raw)
     except ValueError:
-        raise ValueError(
-            f"STREAMZ_CHECKPOINT_MAX_ENTRY_BYTES={raw!r} is not an integer"
-        ) from None
+        raise ValueError(f"{name}={raw!r} is not an integer") from None
+
+
+def _max_entry_bytes() -> int:
+    """The per-entry cap (``STREAMZ_CHECKPOINT_MAX_ENTRY_BYTES``)."""
+    return _env_bytes("STREAMZ_CHECKPOINT_MAX_ENTRY_BYTES", _DEFAULT_MAX_ENTRY_BYTES)
+
+
+def _max_total_bytes(entry_cap: int) -> int:
+    """The cap on all entries together (``STREAMZ_CHECKPOINT_MAX_TOTAL_BYTES``,
+    default twice the entry cap)."""
+    return _env_bytes("STREAMZ_CHECKPOINT_MAX_TOTAL_BYTES", 2 * entry_cap)
 
 
 def _read_npz_raw(path: str) -> Dict[str, np.ndarray]:
     """Read an npz whose entries may or may not carry a ``.npy`` extension.
     Entries are decoded in memory with ``allow_pickle=False`` and checked
-    against per-entry and total decompressed-size caps before allocation."""
+    against per-entry and total decompressed-size caps before allocation.
+
+    Two entries that name one key (``w1`` and ``w1.npy``) raise a
+    ValueError before any entry is decoded.  The JAX package lets the last
+    one win and has no total cap of its own (PARITY.md)."""
     out: Dict[str, np.ndarray] = {}
     cap = _max_entry_bytes()
+    total_cap = _max_total_bytes(cap)
     total = 0
     with zipfile.ZipFile(path, "r") as zf:
-        for info in zf.infolist():
+        infos = zf.infolist()
+        seen: Dict[str, str] = {}
+        for info in infos:
+            name = info.filename
+            key = name[:-4] if name.endswith(".npy") else name
+            if key in seen:
+                raise ValueError(
+                    f"checkpoint entries {seen[key]!r} and {name!r} both name "
+                    f"the key {key!r}"
+                )
+            seen[key] = name
+        for info in infos:
             if info.file_size > cap:
                 raise ValueError(
                     f"checkpoint entry {info.filename!r} inflates to "
@@ -132,11 +157,11 @@ def _read_npz_raw(path: str) -> Dict[str, np.ndarray]:
                     "STREAMZ_CHECKPOINT_MAX_ENTRY_BYTES)"
                 )
             total += info.file_size
-            if total > 2 * cap:
+            if total > total_cap:
                 raise ValueError(
                     f"checkpoint inflates to {total}+ bytes across entries "
-                    f"(total cap {2 * cap}; override via "
-                    "STREAMZ_CHECKPOINT_MAX_ENTRY_BYTES)"
+                    f"(total cap {total_cap}; override via "
+                    "STREAMZ_CHECKPOINT_MAX_TOTAL_BYTES)"
                 )
             name = info.filename
             key = name[:-4] if name.endswith(".npy") else name

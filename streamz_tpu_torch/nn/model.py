@@ -1,7 +1,6 @@
 """The speaker-ID MLP in PyTorch, with the JAX package's capacity layout.
 
-The port of ``streamz_tpu/nn/model.py`` as far as ``--identify``, the vote
-pipeline and the default training run need it.  Reference architecture
+The port of ``streamz_tpu/nn/model.py``.  Reference architecture
 (``streamz-rs/src/lib.rs:744-790``): ``w1`` (in x h1, ReLU) -> ``w2``
 (h1 x h2, tanh) -> ``w3`` (h2 x out, softmax), instantiated 60x512x256xS.
 
@@ -15,6 +14,9 @@ Both embedding heads of the reference are kept:
 - ``embed`` = tanh(h2)  (``src/lib.rs:895-900``)
 - ``forward_embedding`` = ReLU(h2)  (``src/lib.rs:1073-1079``), the one
   the identification path pools.
+
+and the steganography codec's unmasked sigmoid head ``forward_bits``
+(``src/lib.rs:908-914``).
 """
 
 from __future__ import annotations
@@ -126,6 +128,13 @@ def forward_embedding(params: Params, x: torch.Tensor) -> torch.Tensor:
     return torch.relu(h1 @ params["w2"] + params["b2"])
 
 
+def forward_bits(params: Params, x: torch.Tensor) -> torch.Tensor:
+    """Sigmoid output head of the steganography codec (src/lib.rs:908-914):
+    no class mask, the whole output layer."""
+    _, h2 = hidden_tanh(params, x)
+    return torch.sigmoid(h2 @ params["w3"] + params["b3"])
+
+
 class SpeakerMLP(nn.Module):
     """The six parameter tensors as an ``nn.Module``; ``forward`` gives the
     masked softmax probabilities."""
@@ -209,6 +218,9 @@ class SpeakerNet:
     def embedding_size(self) -> int:
         return int(self.mlp.w2.shape[1])
 
+    def input_size(self) -> int:
+        return int(self.mlp.w1.shape[0])
+
     def set_embeddings(self, embeds: List[Tuple[np.ndarray, float, float]]) -> None:
         self.embeddings = embeds
 
@@ -255,9 +267,14 @@ class SpeakerNet:
         cap = round_capacity(max(n, self.capacity))
         rng = np.random.default_rng(self._growth_seed)
         self._growth_seed += 1
-        w3_full = _uniform(rng, (w3.shape[0], cap))
+        if n == cap:
+            # No padding column: the draw would be overwritten whole (a
+            # steganography layer at the 128 KiB cap is 268 M draws).
+            w3_full = np.array(w3, np.float32)
+        else:
+            w3_full = _uniform(rng, (w3.shape[0], cap))
+            w3_full[:, :n] = w3
         b3_full = np.zeros((cap,), np.float32)
-        w3_full[:, :n] = w3
         b3_full[:n] = b3
         self.params = dict(self.params, w3=torch.from_numpy(w3_full).to(self.device),
                            b3=torch.from_numpy(b3_full).to(self.device))
@@ -270,15 +287,104 @@ class SpeakerNet:
         if path not in self.file_lists[cls_id]:
             self.file_lists[cls_id].append(path)
 
+    # -- stego layer (src/lib.rs:836-847) ------------------------------------
+
+    def set_encoding_layer(self, w4: np.ndarray, b4: np.ndarray) -> None:
+        self.w4 = np.asarray(w4, np.float32)
+        self.b4 = np.asarray(b4, np.float32)
+
+    def encoding_layer(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        if self.w4 is not None and self.b4 is not None:
+            return self.w4, self.b4
+        return None
+
     def output_layer(self) -> Tuple[np.ndarray, np.ndarray]:
         """Live (unpadded) softmax layer (src/lib.rs:850-852)."""
         w3 = self.mlp.w3.detach().cpu().numpy()[:, : self.num_speakers]
         b3 = self.mlp.b3.detach().cpu().numpy()[: self.num_speakers]
         return w3, b3
 
-    def forward(self, x) -> np.ndarray:
-        """Softmax over the *live* classes only, shape [..., num_speakers]."""
+    # -- convenience host-side forward passes --------------------------------
+
+    def _host(self, fn, x) -> np.ndarray:
         with torch.inference_mode():
             xt = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-            out = self.mlp(xt, self.num_speakers).cpu().numpy()
+            return fn(self.params, xt).cpu().numpy()
+
+    def forward(self, x) -> np.ndarray:
+        """Softmax over the *live* classes only, shape [..., num_speakers]."""
+        out = self._host(lambda p, xt: forward(p, xt, self.num_speakers), x)
         return out[..., : self.num_speakers]
+
+    def embed_np(self, x) -> np.ndarray:
+        """tanh-h2 embedding of ``x`` as a host array (src/lib.rs:895-900)."""
+        return self._host(embed, x)
+
+    # reference method name (src/lib.rs:895-900)
+    embed_host = embed_np
+
+    def forward_embedding_np(self, x) -> np.ndarray:
+        """ReLU-h2 embedding of ``x`` as a host array (src/lib.rs:1073-1079)."""
+        return self._host(forward_embedding, x)
+
+    def forward_bits(self, x) -> np.ndarray:
+        """Sigmoid head on the live output columns (src/lib.rs:908-914),
+        sliced to ``num_speakers``: the reference's output is exactly the
+        trained bit width, and the capacity padding's random columns would
+        be phantom bits."""
+        return self._host(forward_bits, x)[..., : self.num_speakers]
+
+    # -- in-place training steps (reference method surface,
+    #    src/lib.rs:917-1060) -------------------------------------------------
+
+    def _target_full(self, target) -> Tuple[np.ndarray, int]:
+        """A live-class target vector zero-padded to the capacity, and the
+        number of its columns that are live."""
+        t_live = np.asarray(target, np.float32).ravel()
+        n_live = min(len(t_live), self.capacity)
+        t_full = np.zeros((self.capacity,), np.float32)
+        t_full[:n_live] = t_live[:n_live]
+        return t_full, n_live
+
+    def train(self, x, target, lr: float) -> None:
+        """Single-sample CE+softmax SGD step (src/lib.rs:954-999)."""
+        self.train_batch(np.asarray(x, np.float32)[None, :], target, lr)
+
+    def train_batch(self, batch, target, lr: float) -> None:
+        """Mean-gradient SGD over a batch with a shared live-class target
+        vector (src/lib.rs:1002-1060)."""
+        from streamz_tpu_torch.nn import train as _T
+
+        batch = np.asarray(batch, np.float32)
+        if batch.size == 0:
+            return
+        t_full, _ = self._target_full(target)
+        dev = self.device
+        xt = torch.from_numpy(batch).to(dev)
+        t = torch.from_numpy(t_full).to(dev).expand(xt.shape[0], -1)
+        self.params = _T.train_batch(self.working_params(), xt, t, float(lr),
+                                     self.num_speakers)
+
+    def train_bits(self, x, target, lr: float) -> None:
+        """Single-step MSE+sigmoid update on the full output layer
+        (src/lib.rs:917-951); columns past the target's length stay."""
+        from streamz_tpu_torch.nn import train as _T
+
+        t_full, n_live = self._target_full(target)
+        dev = self.device
+        self.params = _T.train_bits_step(
+            self.working_params(), torch.as_tensor(np.asarray(x, np.float32), device=dev),
+            torch.from_numpy(t_full).to(dev), float(lr), n_live)
+
+    # -- persistence (src/lib.rs:1081-1281) ----------------------------------
+
+    def save(self, path: str) -> None:
+        from streamz_tpu_torch.nn import checkpoint
+
+        checkpoint.save(self, path)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "SpeakerNet":
+        from streamz_tpu_torch.nn import checkpoint
+
+        return checkpoint.load(path, device=device)

@@ -11,6 +11,10 @@ train on the same bits and their labels can be compared exactly:
 - ``uniform(key, shape)`` hashes the flat C-order index of each element,
   split into (hi, lo) 32-bit words, takes ``out0 ^ out1`` as its 32 random
   bits and maps them to ``[0, 1)`` as ``bitcast((bits >> 9) | 0x3F800000) - 1``;
+  with ``minval``/``maxval`` it scales that as ``jax.random.uniform`` does,
+  ``max(minval, u * (maxval - minval) + minval)`` with the multiply-add
+  rounded once to f32, as XLA's fused multiply-add rounds it (the draws of
+  ``streamz_tpu/dsp/augment.py``);
 - ``permutation`` and ``randint`` are ``jax.random``'s on those bits (the
   draws of ``streamz_tpu/infer/cluster.py``).
 
@@ -92,10 +96,27 @@ def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     return o0 ^ o1
 
 
-def uniform(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32 on [0, 1)."""
+def uniform(key: torch.Tensor, shape: Sequence[int], minval=0.0,
+            maxval=1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, minval=minval, maxval=maxval)`` in
+    float32, bit for bit.  ``minval`` and ``maxval`` are numbers or tensors
+    that broadcast against ``shape``; the defaults give [0, 1).
+
+    XLA fuses ``u * (maxval - minval) + minval`` into one multiply-add with
+    a single rounding.  Here it runs in float64, where the product of two
+    f32 values is exact and so is the sum for bounds within a few binades
+    of the span (every range the port draws), then rounds once to f32: the
+    same bits on the CPU and on the card, with no fused op needed."""
     bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    floats = bits.to(torch.int32).view(torch.float32) - 1.0
+    if isinstance(minval, (int, float)) and isinstance(maxval, (int, float)) and (
+            minval == 0.0 and maxval == 1.0):
+        return floats
+    lo = torch.as_tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.as_tensor(maxval, dtype=torch.float32, device=key.device)
+    span = (hi - lo).to(torch.float64)
+    scaled = (floats.to(torch.float64) * span + lo.to(torch.float64)).to(torch.float32)
+    return torch.maximum(lo, scaled)
 
 
 def permutation(key: torch.Tensor, n: int) -> torch.Tensor:

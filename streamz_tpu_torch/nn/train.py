@@ -1,6 +1,6 @@
 """Training steps with the reference's SGD semantics, in PyTorch.
 
-The port of ``streamz_tpu/nn/train.py`` as far as the default run needs it.
+The port of ``streamz_tpu/nn/train.py`` (its single-device trainers).
 The reference trains with a hand-written backprop whose output delta is
 exactly ``softmax(logits) - target``, including the quirk that an
 out-of-range target class gives a zero target vector
@@ -11,6 +11,10 @@ The corpus step runs K5's step form and the per-file trainer K6
 every capacity, and runs its plain formulation for CPU tensors.  The plain
 versions are ``train_kernels.corpus_grads_plain`` with ``_apply_step``, and
 ``train_windows_plain``.
+
+``train_bits_step`` is the steganography codec's sigmoid+MSE step
+(``src/lib.rs:917-951``), plain torch as it is plain XLA in the JAX
+package.
 
 The step functions update the parameter dictionary IN PLACE and also
 return it, where the JAX package returns a new one.
@@ -23,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from streamz_tpu_torch.nn import prng
+from streamz_tpu_torch.nn.model import PARAM_NAMES
 from streamz_tpu_torch.nn.train_kernels import (
     Batch,
     NumSpeakers,
@@ -97,3 +102,32 @@ def corpus_step(params: Params, batch: torch.Tensor, labels: torch.Tensor,
     device scalar)."""
     return params, corpus_step_k5(params, Batch(batch, labels, weights),
                                   num_speakers, lr)
+
+
+def train_bits_step(params: Params, x: torch.Tensor, target: torch.Tensor, lr,
+                    n_live: int) -> Params:
+    """One MSE+sigmoid SGD step of the whole MLP on ``x`` ([in], or rows
+    [B, in] whose losses add up), in place.
+
+    The gradient of ``0.5 * sum_live (sigmoid(h2 @ w3 + b3) - t)**2`` by the
+    chain rule: the output delta ``(out - t) * out * (1 - out)``
+    (src/lib.rs:926-927), zero for the columns at or past ``n_live`` (the
+    capacity padding, whose random weights would otherwise move the trunk),
+    then back through tanh and ReLU to every layer."""
+    x2 = torch.atleast_2d(x)
+    h1 = torch.relu(x2 @ params["w1"] + params["b1"])
+    h2 = torch.tanh(h1 @ params["w2"] + params["b2"])
+    out = torch.sigmoid(h2 @ params["w3"] + params["b3"])
+    live = torch.arange(out.shape[-1], device=out.device) < n_live
+    delta = torch.where(live, (out - target) * (out * (1.0 - out)),
+                        torch.zeros((), device=out.device))
+    dh2 = (delta @ params["w3"].T) * (1.0 - h2 * h2)
+    dh1 = (dh2 @ params["w2"].T) * (h1 > 0.0)
+    grads = {
+        "w1": x2.T @ dh1, "b1": dh1.sum(0),
+        "w2": h1.T @ dh2, "b2": dh2.sum(0),
+        "w3": h2.T @ delta, "b3": delta.sum(0),
+    }
+    for k in PARAM_NAMES:
+        params[k].sub_(lr * grads[k])
+    return params

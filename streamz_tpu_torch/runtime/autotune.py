@@ -11,6 +11,13 @@ A stored decision holds for the candidate set it was measured against,
 each candidate with its version (for a kernel, the hash of the sources it
 is built from): a rebuilt kernel is probed again.
 
+When the static default is one of the candidates, it stays unless another
+candidate beats it by more than the probe's own run-to-run spread: a probe
+may return the times of its repeated runs, and the spread it read is
+stored with the decision.  The frontend's K1 and K2 differ by under 3%,
+and the lower of two times alone picked one in some processes and the
+other in the next.
+
 Unlike the JAX package, a probe that raises is not skipped: a candidate
 kernel that fails to build or launch fails the run instead of quietly
 losing the measurement.  Only writing the disk cache may fail silently.
@@ -21,7 +28,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -40,8 +47,12 @@ def _default_cache_path() -> str:
 _CACHE_PATH = os.environ.get("STREAMZ_AUTOTUNE_CACHE", _default_cache_path())
 _memory: Dict[str, str] = {}
 # The seconds each candidate's probe measured, per cache key, from the last
-# probe in this process.
+# probe in this process (the median of its runs where it returned several),
+# and the relative run-to-run spread the decision read.
 probe_times: Dict[str, Dict[str, float]] = {}
+probe_spread: Dict[str, float] = {}
+
+ProbeResult = Union[float, Sequence[float]]
 
 
 def _cache_path() -> str:
@@ -112,9 +123,20 @@ def probing_disabled() -> bool:
     return os.environ.get("STREAMZ_NO_AUTOTUNE", "0") == "1"
 
 
+def _read_probe(result: ProbeResult) -> Tuple[float, float]:
+    """(time, relative spread) of one probe's result: a single time has no
+    spread; the times of repeated runs give their lower median and
+    ``(max - min) / median``."""
+    if isinstance(result, (int, float)):
+        return float(result), 0.0
+    runs = sorted(float(t) for t in result)
+    mid = runs[(len(runs) - 1) // 2]
+    return mid, (runs[-1] - runs[0]) / mid if mid > 0 else 0.0
+
+
 def measured_choice(
     stage: str,
-    candidates: Dict[str, Callable[[], float]],
+    candidates: Dict[str, Callable[[], ProbeResult]],
     default: str,
     force: bool = False,
     versions: Optional[Dict[str, str]] = None,
@@ -122,11 +144,18 @@ def measured_choice(
     """The name of the fastest candidate on this card.
 
     ``candidates`` maps a name to a zero-argument probe returning a time
-    (lower is better); each probe warms itself up.  ``versions`` maps a
-    name to what that candidate is built from: a cached decision whose
-    candidates or versions differ is probed again.  Without a card the
-    ``default`` is returned without probing.  An exception from a probe
-    propagates.  ``force`` probes again, ignoring both caches.
+    (lower is better), or the times of its repeated runs; each probe warms
+    itself up.  ``versions`` maps a name to what that candidate is built
+    from: a cached decision whose candidates or versions differ is probed
+    again.  Without a card the ``default`` is returned without probing.  An
+    exception from a probe propagates.  ``force`` probes again, ignoring
+    both caches.
+
+    When ``default`` is a candidate it stays unless the fastest one is
+    faster by more than the spread: ``t_best < t_default * (1 - spread)``,
+    the spread being the largest relative run-to-run spread of any
+    candidate's runs (0 for probes that return one time).  A tie keeps the
+    default.  The spread is stored with the decision.
     """
     key = _key(stage)
     measured_set = sorted(
@@ -153,11 +182,18 @@ def measured_choice(
         _memory[key] = default
         return default
 
-    times = {name: float(probe()) for name, probe in candidates.items()}
+    read = {name: _read_probe(probe()) for name, probe in candidates.items()}
+    times = {name: t for name, (t, _) in read.items()}
     best = min(times, key=times.get)
+    entry = {"candidates": measured_set}
+    if default in times:
+        spread = max(s for _, s in read.values())
+        if not times[best] < times[default] * (1.0 - spread):
+            best = default
+        entry["spread"] = probe_spread[key] = spread
     probe_times[key] = times
     _memory[key] = best
-    _disk_put(key, {"choice": best, "candidates": measured_set})
+    _disk_put(key, {"choice": best, **entry})
     return best
 
 
@@ -181,3 +217,4 @@ def reset(stage: Optional[str] = None) -> None:
     for k in [k for k in _memory if stage is None or k.startswith(f"{stage}:")]:
         del _memory[k]
         probe_times.pop(k, None)
+        probe_spread.pop(k, None)

@@ -14,16 +14,11 @@ from __future__ import annotations
 import torch
 
 
-def chain_timer(fn, *args, iters: int = 8, repeats: int = 3,
-                best: bool = False) -> float:
-    """Per-iteration device time of ``fn(*args)``, in seconds.
-
-    One warm-up call, then ``repeats`` runs of ``iters`` calls, each run
-    timed with CUDA events on the current stream.  Returns the median of
-    the runs (the lower median for an even count), or the least with
-    ``best=True``, the right statistic for a peak.  Raises without a card:
-    a device time is never taken on the CPU.
-    """
+def chain_times(fn, *args, iters: int = 8, repeats: int = 3) -> list:
+    """The per-iteration device time of each of ``repeats`` runs of ``iters``
+    calls of ``fn(*args)``, in seconds, after one warm-up call; each run is
+    timed with CUDA events on the current stream.  Raises without a card:
+    a device time is never taken on the CPU."""
     if not torch.cuda.is_available():
         raise RuntimeError("chain_timer times CUDA launches; CUDA is not available")
     fn(*args)
@@ -37,6 +32,19 @@ def chain_timer(fn, *args, iters: int = 8, repeats: int = 3,
             fn(*args)
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
-    picked = min(times) if best else sorted(times)[(len(times) - 1) // 2]
-    return picked / iters
+        times.append(start.elapsed_time(end) / 1e3 / iters)
+    return times
+
+
+def lower_median(values) -> float:
+    """The median of ``values``, the lower one for an even count."""
+    return sorted(values)[(len(values) - 1) // 2]
+
+
+def chain_timer(fn, *args, iters: int = 8, repeats: int = 3,
+                best: bool = False) -> float:
+    """Per-iteration device time of ``fn(*args)``, in seconds: the median
+    of :func:`chain_times`' runs (the lower median for an even count), or
+    the least with ``best=True``, the right statistic for a peak."""
+    times = chain_times(fn, *args, iters=iters, repeats=repeats)
+    return min(times) if best else lower_median(times)

@@ -4,7 +4,7 @@ The reference has no profiling at all (SURVEY.md §5.1; its only
 observability is indicatif progress bars).
 
 - :class:`PhaseTimer`: wall-clock seconds per phase of the CLI (ingest,
-  features, corpus, discovery, finalize, eval), each phase ending in a
+  features, corpus, stego, discovery, finalize, eval), each phase ending in a
   device synchronisation on a card, so that a phase's time holds its own
   device work and none of the phase before;
 - :func:`trace`: ``torch.profiler`` over a region, CPU activity plus CUDA

@@ -780,3 +780,76 @@ def test_eval_metrics_with_and_without_store_on_card(cuda_device):
     got = evaluate(net, fm, targets, 0.5, verbose=False, store=store)
     assert got == want and want["correct"] > 0
     assert store.stats["host_pack_bytes"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Steganography and the raw-PCM drivers on the card.
+# ---------------------------------------------------------------------------
+
+from streamz_tpu_torch.dsp.augment import augment  # noqa: E402
+from streamz_tpu_torch.nn import prng  # noqa: E402
+from streamz_tpu_torch.nn import train_kernels as tk  # noqa: E402
+from streamz_tpu_torch.stego import codec  # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_samples", [None, [44100, 500, 0]])
+def test_augment_on_card_equals_cpu(cuda_device, n_samples):
+    pcm = np.random.default_rng(1).integers(-32768, 32768, (3, 44100)).astype(np.float32)
+    key = prng.PRNGKey(7)
+    got = augment(key.to(cuda_device), torch.from_numpy(pcm).to(cuda_device), n_samples)
+    want = augment(key, torch.from_numpy(pcm), n_samples)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_epochs", [10_000, 11])
+def test_stego_block_loop_on_card_equals_one_step_blocks(cuda_device, max_epochs):
+    """The doubling blocks on the card stop where blocks of one step stop:
+    the same weights, bit for bit, and the same count."""
+    rng = np.random.default_rng(0)
+    h2 = torch.from_numpy(np.tanh(rng.normal(0, 1, 64)).astype(np.float32)).to(cuda_device)
+    w3 = torch.from_numpy(rng.uniform(-0.05, 0.05, (64, 256)).astype(np.float32))
+    target = np.zeros(256, np.float32)
+    target[:200] = rng.integers(0, 2, 200)
+    target = torch.from_numpy(target).to(cuda_device)
+    runs = []
+    for max_block in (1, 256):
+        a, b = w3.clone().to(cuda_device), torch.zeros(256, device=cuda_device)
+        got = codec._train_bits_loop(a, b, h2, target, 200, 0.002,
+                                     max_epochs=max_epochs, max_block=max_block)
+        runs.append((got, a, b))
+    (g1, a1, b1), (g2, a2, b2) = runs
+    assert g1 == g2
+    assert g1 == (11, False) if max_epochs == 11 else (g1[1] and g1[0] > 20)
+    assert torch.equal(a1, a2) and torch.equal(b1, b2)
+
+
+@pytest.mark.cuda
+def test_stego_encode_on_card_returns_a_host_net(cuda_device, tmp_path):
+    """The encode trains on the card, and what it returns holds no device
+    memory: the decoder and the w4/b4 stash read it on the host."""
+    payload = np.random.default_rng(3).bytes(512)
+    src = tmp_path / "secret.bin"
+    src.write_bytes(payload)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    net = codec.encode_file(str(src), device=cuda_device)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+    assert net.device.type == "cpu"
+    assert codec.extract_file_from_classifier(net)[:len(payload)] == payload
+
+
+@pytest.mark.cuda
+def test_pretrain_network_launches_the_frontend_and_k6_per_epoch(cuda_device):
+    t = np.arange(44100) / 44100.0
+    pcm = (np.sin(2 * np.pi * 150.0 * t) * 9000).astype(np.int16)
+    net = SpeakerNet.new(60, 64, 32, output=2, seed=1, device=cuda_device)
+    ex = FeatureExtractor("pallas_v4", device=cuda_device)
+    k1 = mfcc_kernel.WRAPPERS["K1"]
+    k1.launches = tk.train_windows_k6.launches = 0
+    loss = drivers.pretrain_network(net, pcm, 1, 2, 3, 0.05, 0.2, 8, ex,
+                                    key=prng.PRNGKey(0))
+    assert k1.launches == 3 and tk.train_windows_k6.launches == 3
+    assert np.isfinite(loss) and loss > 0

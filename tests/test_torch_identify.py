@@ -211,9 +211,9 @@ def test_identify_all_inputs_failed(corpus, monkeypatch, capsys):
     assert "No input file could be loaded" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("args", [["--serve"], ["--encode", "f"],
+@pytest.mark.parametrize("args", [["--serve"], ["--coordinator", "localhost:1234"],
                                   ["--identify", "a.wav", "--serve"],
-                                  ["--no-cache-wav", "--decode", "o"]])
+                                  ["--no-cache-wav", "--num-processes", "2"]])
 def test_unported_flags_return_2(tmp_path, monkeypatch, capsys, args):
     """The JAX CLI's modes that are not ported yet are refused before any
     work: rc 2 and no model is written."""
