@@ -85,6 +85,31 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    K1's wherever no window lies within 1e-3 of a vote change, and its gate
    verdicts equal K1's wherever the gate margin exceeds twice the two
    backends' difference in similarity (so every margin over 1e-3 too).
+   Then streaming and serving on the trained model and the 64 held-out
+   clips (no kernel of the port runs there: every count must stay 0).
+   ``[stream]``: one ``StreamingIdentifier`` per wire (f32, i16, mu-law,
+   A-law) fed one clip in uneven chunks; its features within
+   ``STREAM_PLAIN_TOL`` of the offline ``'plain'`` frontend on the card
+   and within 1e-3 of ``'auto'``'s (K1 or K2), its verdict the offline
+   vote verdict; then 99 feeds of 100 ms under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host read.
+   ``[serve]``: (1) ``MultiStreamIdentifier`` with 64 slots, i16 and mu-law
+   streams interleaved, fed every clip in 100 ms chunks with a tick after
+   each round: the aggregate real-time factor, a tick's device ms by CUDA
+   events and its kernel launches under the profiler, host ms per tick,
+   peak device memory; every finalize verdict the offline vote verdict
+   wherever the top-two vote gap exceeds ``VERDICT_MARGIN`` of the window
+   count; the u8 wire's carry bit-identical to host-decoded i16. (2) The
+   daemon, ``python -m streamz_tpu_torch --serve 0 --serve-streams 64`` in
+   a subprocess on the card, 64 ``StreamClient`` streams at a 100 ms
+   cadence for ``PACED_PERIODS`` periods (i16 and mu-law interleaved), then
+   the rest of each clip: FEED and CURRENT latency p50/p95/p99, the
+   server's tick ms, the first verdict on a fresh process and on a warm
+   one, its RSS after each of ``RELOADS`` hot reloads of a rewritten
+   ``model.npz`` beside a bare process's after ``import torch`` and one CUDA
+   product; FINALIZE verdicts those of (1); no failed tick, exit 0 on
+   SIGTERM. (3) A two-child ``LocalFleet`` on the card, started beside the
+   daemon: the verdicts of (1).
 7. The GPU path against the CPU path on 8 clips (features, embeddings,
    similarities, and the gate's verdicts wherever the similarities lie
    farther from a gate bound than the two paths differ).
@@ -235,6 +260,26 @@ PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+# Streaming and serving (no kernel of the port runs there): the streamed
+# features against the offline 'plain' frontend on the card, whose products
+# run at other shapes (the CPU holds them to 1e-5), and against 'auto' at
+# K1_TOL.  Verdicts are compared wherever the top-two vote gap exceeds
+# VERDICT_MARGIN of the window count, confidences within VERDICT_CONF_RTOL.
+STREAM_PLAIN_TOL = 1e-4
+VERDICT_MARGIN = 1e-4
+VERDICT_CONF_RTOL = 1e-4
+SERVE_CHUNK = 4410     # 100 ms at 44.1 kHz, the daemon clients' cadence
+PACED_PERIODS = 30     # 3 s of each clip at that cadence, the rest at once
+RELOADS = 3            # hot reloads of a rewritten model.npz
+BARE_RSS = (  # a process's RSS (MiB) after import torch, then after one CUDA product
+    "import torch\n"
+    "def rss():\n"
+    "    with open('/proc/self/status') as f:\n"
+    "        return next(float(ln.split()[1]) / 1024 for ln in f if ln.startswith('VmRSS'))\n"
+    "a = rss()\n"
+    "torch.ones(64, 400, device='cuda') @ torch.ones(400, 802, device='cuda')\n"
+    "torch.cuda.synchronize()\n"
+    "print(f'{a:.1f} {rss():.1f}')\n")
 
 
 def fail(msg: str) -> None:
@@ -442,6 +487,439 @@ def run_cli(args):
     with contextlib.redirect_stdout(buf):
         rc = cli_main(args, report=report)
     return rc, buf.getvalue().splitlines(), report
+
+
+def percentiles_ms(xs):
+    """p50/p95/p99 of a list of seconds, in ms."""
+    p = np.percentile(np.asarray(xs) * 1e3, (50, 95, 99))
+    return {"p50": float(p[0]), "p95": float(p[1]), "p99": float(p[2]), "n": len(xs)}
+
+
+def offline_votes(net, feats_dev):
+    """The offline vote sums of one clip's features on the card (FP32
+    ``forward``, summed over the windows) and its window count."""
+    from streamz_tpu_torch.nn.model import forward
+
+    with torch.no_grad():
+        probs = forward(net.params, feats_dev, net.num_speakers)
+    return probs.sum(dim=0).cpu().numpy(), int(feats_dev.shape[0])
+
+
+def vote_margin(votes: np.ndarray, count: float, ns: int) -> float:
+    """The top-two vote gap as a share of the window count."""
+    if ns < 2 or count <= 0:
+        return float("inf")
+    top = np.sort(votes[:ns])[::-1]
+    return float(top[0] - top[1]) / count
+
+
+def check_verdicts(label, got, want, margins):
+    """Speaker ids equal wherever the margin exceeds VERDICT_MARGIN, and the
+    confidences within VERDICT_CONF_RTOL there; returns (compared, max rel)."""
+    compared, worst = 0, 0.0
+    for i, (g, w, m) in enumerate(zip(got, want, margins)):
+        if m <= VERDICT_MARGIN:
+            continue
+        if g is None or w is None or g[0] != w[0]:
+            fail(f"{label}: stream {i} verdict {g}, expected {w} (margin {m:.3e})")
+        rel = abs(g[1] - w[1]) / max(abs(w[1]), 1e-30)
+        worst = max(worst, rel)
+        if rel > VERDICT_CONF_RTOL:
+            fail(f"{label}: stream {i} confidence {g[1]!r}, expected {w[1]!r}")
+        compared += 1
+    return compared, worst
+
+
+def vm_rss_mib(pid: int) -> float:
+    with open(f"/proc/{pid}/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return float(line.split()[1]) / 1024.0
+    return float("nan")
+
+
+def stream_phase(net, pcms, dev, extractor, card, report, zero_counts):
+    """``[stream]``: one StreamingIdentifier per wire against the offline
+    frontends on the card, and ``feed`` free of host reads.  The offline
+    features are made first; ``zero_counts`` runs before the streams."""
+    from streamz_tpu_torch.app.stream import StreamingIdentifier, vote_verdict
+    from streamz_tpu_torch.dsp.features import FeatureExtractor
+    from streamz_tpu_torch.io import g711
+
+    plain = FeatureExtractor("plain", device=dev)
+    clip = pcms[0]
+    wires = {"f32": (clip.astype(np.float32) / 32767.0, None, clip),
+             "i16": (clip, None, clip)}
+    for law in ("ulaw", "alaw"):
+        codes = (g711.ulaw_encode if law == "ulaw" else g711.alaw_encode)(clip)
+        wires[law] = (codes.tobytes(), law, g711.decode(codes, law))
+    refs = {w: (plain.extract_batch([pcm])[0], extractor.extract_batch([pcm])[0])
+            for w, (_, _, pcm) in wires.items()}
+    zero_counts()
+    rng = np.random.default_rng(SEED + 21)
+    out = {}
+    for wire, (fed, enc, pcm) in wires.items():
+        chunks = rng.integers(1, 20000, size=64)
+        sid = StreamingIdentifier(net, threshold=0.0, collect_features=True)
+        i = 0
+        t0 = time.perf_counter()
+        for n in chunks:
+            if i < len(fed):
+                sid.feed(fed[i:i + int(n)], encoding=enc)
+                i += int(n)
+        if i < len(fed):
+            sid.feed(fed[i:], encoding=enc)
+        final = sid.finalize()
+        stream_s = time.perf_counter() - t0
+        got = sid.streamed_features()
+        want, auto = refs[wire]
+        if got.shape != want.shape:
+            fail(f"[stream] {wire}: streamed features {got.shape}, offline {want.shape}")
+        err_plain = float(np.abs(got - want).max())
+        err_auto = float(np.abs(got - auto).max())
+        votes, count = offline_votes(net, torch.from_numpy(want).to(dev))
+        offline = vote_verdict(votes, count, net.output_size(), 0.0)
+        margin = vote_margin(votes, count, net.num_speakers)
+        out[wire] = {"max_abs_err_plain": err_plain, "max_abs_err_auto": err_auto,
+                     "windows": int(got.shape[0]), "verdict": final, "offline": offline,
+                     "margin": margin, "s": stream_s}
+        print(f"[stream] {wire}: {got.shape[0]} windows in {len(chunks) + 1} uneven "
+              f"chunks, {stream_s:.3f} s; features vs plain on the card max abs "
+              f"{err_plain:.3e} (bound {STREAM_PLAIN_TOL:g}), vs '{extractor.resolved()}' "
+              f"{err_auto:.3e} (bound {K1_TOL:g}); verdict {final}, offline {offline}, "
+              f"margin {margin:.3e}")
+        if err_plain > STREAM_PLAIN_TOL or err_auto > K1_TOL:
+            fail(f"[stream] {wire}: streamed features off the offline frontends")
+        check_verdicts(f"[stream] {wire}", [final], [offline], [margin])
+    # feed reads nothing back: every chunk under the sync check.
+    sid = StreamingIdentifier(net, threshold=0.0)
+    sid.feed(clip[:8000])  # first use outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        for i in range(8000, len(clip), 4410):
+            sid.feed(clip[i:i + 4410])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    n_chunks = len(range(8000, len(clip), 4410))
+    print(f"[stream] {n_chunks} feeds of 100 ms under torch.cuda.set_sync_debug_mode"
+          f"('error'): no host read; {enqueue_s / n_chunks * 1e3:.3f} ms a feed on the "
+          f"host | {card}")
+    out["sync_free_feeds"] = n_chunks
+    out["feed_host_ms"] = enqueue_s / n_chunks * 1e3
+    report["stream"] = out
+
+
+def serve_phase(net, pcms, dev, card, work, report):
+    """``[serve]``: MultiStreamIdentifier in process, the --serve daemon in a
+    subprocess, and a two-child LocalFleet, on the 64 held-out clips."""
+    import subprocess
+    import threading
+
+    from streamz_tpu_torch import config
+    from streamz_tpu_torch.app.fleet import FleetClient, LocalFleet
+    from streamz_tpu_torch.app.serve import MultiStreamIdentifier
+    from streamz_tpu_torch.app.server import StreamClient
+    from streamz_tpu_torch.app.stream import vote_verdict
+    from streamz_tpu_torch.dsp.features import FeatureExtractor
+    from streamz_tpu_torch.io import g711
+
+    S = len(pcms)
+    # Odd streams on the mu-law wire, even ones on i16, interleaved.
+    codes = {i: g711.ulaw_encode(pcms[i]) for i in range(1, S, 2)}
+    fed_pcm = [g711.ulaw_decode(codes[i]) if i in codes else pcms[i] for i in range(S)]
+
+    def chunk(i, a, b):
+        return (codes[i][a:b], "ulaw") if i in codes else (pcms[i][a:b], None)
+
+    feats = FeatureExtractor("plain", device=dev).extract_batch(fed_pcm)
+    offline, margins = [], []
+    for f in feats:
+        votes, count = offline_votes(net, torch.from_numpy(f).to(dev))
+        offline.append(vote_verdict(votes, count, net.output_size(), 0.0))
+        margins.append(vote_margin(votes, count, net.num_speakers))
+    audio_s = sum(len(p) for p in pcms) / RATE
+
+    # 1. In process: every clip in 100 ms chunks, a tick after each round.
+    ident = MultiStreamIdentifier(net, n_streams=S, threshold=0.0)
+    sids = [ident.open() for _ in range(S)]
+    ident.tick()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    n = len(pcms[0])
+    tick_host, tick_dev = [], []
+    t_start = time.perf_counter()
+    for a in range(0, n, SERVE_CHUNK):
+        for i, sid in enumerate(sids):
+            ident.feed(sid, *chunk(i, a, a + SERVE_CHUNK))
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        ident.tick()
+        ev1.record()
+        tick_host.append(time.perf_counter() - t0)
+        tick_dev.append((ev0, ev1))
+    finals = [ident.finalize(sid) for sid in sids]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    dev_ms = [e0.elapsed_time(e1) for e0, e1 in tick_dev]
+    # One more tick of 64 slots x 16 blocks under the profiler: its kernels.
+    prof_ident = MultiStreamIdentifier(net, n_streams=S, threshold=0.0)
+    p_sids = [prof_ident.open() for _ in range(S)]
+    for sid in p_sids:
+        prof_ident.feed(sid, pcms[sid][:16 * config.HOP_SIZE])
+    prof_ident.tick()
+    for sid in p_sids:
+        prof_ident.feed(sid, pcms[sid][16 * config.HOP_SIZE:32 * config.HOP_SIZE])
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ident.tick()
+        torch.cuda.synchronize()
+    acts = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kern = [e for e in acts if not e.key.startswith(("Memcpy", "Memset"))]
+    launches = sum(e.count for e in kern)  # 0: the profiler saw no device time
+    kern_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    copies = sum(e.count for e in acts) - launches
+    compared, worst = check_verdicts("[serve] in process vs offline", finals, offline, margins)
+    rtf = audio_s / wall
+    wires = ", ".join(f"{k} {v}" for k, v in ident.stats()["wire_dispatches"].items() if v)
+    print(f"[serve] in process: {S} streams (i16 and mu-law interleaved, {wires} dispatches), "
+          f"{audio_s:.0f} s of audio in {wall:.3f} s: aggregate real-time factor {rtf:.1f}; "
+          f"tick (one dispatch of {S} x {ident.k} blocks) device ms p50 "
+          f"{np.median(dev_ms):.3f} by CUDA events, host ms p50 {np.median(tick_host) * 1e3:.3f}"
+          f" p99 {np.percentile(tick_host, 99) * 1e3:.3f}; one tick under the profiler: "
+          + (f"{launches} kernel launches, {kern_ms:.3f} ms of kernel time, {copies} copies"
+             if launches else "no device time recorded, launches not measured")
+          + f"; peak device memory {peak_mib:.1f} MiB, {peak_mib - base_mib:.1f} above what "
+          f"was allocated before it | {card}")
+    print(f"[serve] in process: finalize verdicts equal the offline vote verdicts on "
+          f"{compared} of {S} streams (margins over {VERDICT_MARGIN:g}), confidences within "
+          f"{worst:.2e} relative; top-two vote margins min {min(margins):.3e}, median "
+          f"{float(np.median(margins)):.3e}")
+    # The u8 wire alone, against host-decoded i16, bit for bit on the card.
+    u8, i16 = (MultiStreamIdentifier(net, n_streams=S, threshold=0.0) for _ in range(2))
+    for srv in (u8, i16):
+        for _ in range(S):
+            srv.open()
+    for a in range(0, 2 * RATE, SERVE_CHUNK):
+        for i in range(S):
+            c = g711.ulaw_encode(pcms[i][a:a + SERVE_CHUNK])
+            u8.feed(i, c, encoding="ulaw")
+            i16.feed(i, g711.ulaw_decode(c))
+        u8.tick()
+        i16.tick()
+    if (u8.stats()["wire_dispatches"]["u8"] == 0
+            or not all(torch.equal(a, b) for a, b in zip(u8._carry, i16._carry))):
+        fail(f"[serve] the u8 wire differs from host-decoded i16: {u8.stats()}")
+    print(f"[serve] u8 wire: {u8.stats()['wire_dispatches']['u8']} dispatches of "
+          f"mu-law bytes, the carry bit-identical to host-decoded i16")
+    report["serve_in_process"] = {
+        "streams": S, "audio_s": audio_s, "wall_s": wall, "aggregate_rtf": rtf,
+        "tick_device_ms": percentiles_ms([d / 1e3 for d in dev_ms]),
+        "tick_host_ms": percentiles_ms(tick_host), "tick_kernel_launches": launches,
+        "tick_kernel_ms": kern_ms, "tick_copies": copies, "peak_device_mib": peak_mib,
+        "peak_above_base_mib": peak_mib - base_mib, "compared": compared,
+        "conf_max_rel": worst, "margins": margins, "wires": ident.stats()["wire_dispatches"]}
+    del prof_ident, u8, i16
+
+    # 2. The daemon: python -m streamz_tpu_torch --serve 0 on the card.  The
+    # fleet's two children of (3) start beside it and wait idle meanwhile.
+    env = dict(os.environ, PYTHONPATH=str(HERE))
+    fleet = LocalFleet(os.path.join(work, "model.npz"), n_servers=2, n_streams=S // 2,
+                       threshold=0.0, tick_interval=0.005, env={"PYTHONPATH": str(HERE)},
+                       device="cuda")
+    fleet_box: dict = {}
+
+    def start_fleet():
+        t = time.perf_counter()
+        try:
+            fleet_box["endpoints"] = fleet.start(timeout=180)
+        except Exception as e:  # reported after the join
+            fleet_box["error"] = e
+        fleet_box["ready_s"] = time.perf_counter() - t
+
+    fleet_thread = threading.Thread(target=start_fleet, daemon=True)
+    # Beside them a bare process: the RSS of `import torch` and of a CUDA
+    # context with one product, against which the daemon's RSS is read.
+    bare = subprocess.Popen([sys.executable, "-c", BARE_RSS], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    t_spawn = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "streamz_tpu_torch", "--serve", "0",
+         "--serve-streams", str(S), "--threshold", "0"],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        log: list = []
+        reader = threading.Thread(target=lambda: log.extend(iter(proc.stdout.readline, "")),
+                                  daemon=True)
+        reader.start()
+        fleet_thread.start()
+        try:
+            deadline = time.monotonic() + 120
+            while not any(ln.startswith("Serving") for ln in log):
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    fail("[serve] the daemon did not start: " + "".join(log)[-2000:])
+                time.sleep(0.02)
+            ready_s = time.perf_counter() - t_spawn
+            rss_ready = vm_rss_mib(proc.pid)
+            line = next(ln for ln in log if ln.startswith("Serving"))
+            port = int(line.split("127.0.0.1:")[1].split()[0])
+
+            def first_verdict(i):
+                """Seconds from the first FEED of a new stream to its first verdict."""
+                c = StreamClient("127.0.0.1", port, timeout=60)
+                pcm, enc = chunk(i, 0, SERVE_CHUNK)
+                t0 = time.perf_counter()
+                c.feed(pcm.tobytes() if enc else pcm, wire=enc or "i16")
+                while c.current() is None:
+                    if time.perf_counter() - t0 > 60:
+                        fail("[serve] no first verdict within 60 s")
+                    time.sleep(0.002)
+                return c, time.perf_counter() - t0
+
+            c0, cold_s = first_verdict(0)
+            clients = [c0] + [StreamClient("127.0.0.1", port, timeout=60) for _ in range(1, S)]
+            feed_lat, cur_lat, errors = [], [], []
+            paced = PACED_PERIODS * SERVE_CHUNK
+
+            def run(idx):
+                try:
+                    t_next = time.perf_counter()
+                    for p in range(PACED_PERIODS):
+                        a = p * SERVE_CHUNK
+                        for i in idx:
+                            if i == 0 and p == 0:
+                                continue  # stream 0's first chunk went in above
+                            pcm, enc = chunk(i, a, a + SERVE_CHUNK)
+                            t0 = time.perf_counter()
+                            clients[i].feed(pcm.tobytes() if enc else pcm, wire=enc or "i16")
+                            clients[i].current()  # replies once the FEED is taken
+                            feed_lat.append(time.perf_counter() - t0)
+                        time.sleep(max(0.0, t_next + 0.05 - time.perf_counter()))
+                        for i in idx:
+                            t0 = time.perf_counter()
+                            clients[i].current()
+                            cur_lat.append(time.perf_counter() - t0)
+                        t_next += SERVE_CHUNK / RATE
+                        time.sleep(max(0.0, t_next - time.perf_counter()))
+                    for i in idx:
+                        pcm, enc = chunk(i, paced, None)
+                        clients[i].feed(pcm.tobytes() if enc else pcm, wire=enc or "i16")
+                except Exception as e:  # reported after the join
+                    errors.append(repr(e))
+
+            clients[0].stats(reset_ticks=True)
+            groups = [list(range(g, S, 8)) for g in range(8)]
+            threads = [threading.Thread(target=run, args=(g,)) for g in groups]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            if errors or any(t.is_alive() for t in threads):
+                fail(f"[serve] daemon clients failed: {errors[:3]}")
+            paced_stats = clients[0].stats()
+            daemon_finals = [c.finalize() for c in clients]
+            for c in clients:
+                c.close()
+            d_compared, d_worst = check_verdicts("[serve] daemon vs in process", daemon_finals,
+                                                 finals, margins)
+            time.sleep(0.2)  # the slots close on the ticker
+            c_warm, warm_s = first_verdict(0)
+            c_warm.close()
+            rss = [vm_rss_mib(proc.pid)]
+            with StreamClient("127.0.0.1", port, timeout=60) as sc:
+                model = os.path.join(work, "model.npz")
+                blob = Path(model).read_bytes()
+                for r in range(1, RELOADS + 1):
+                    # The same bytes under a new inode: a rewritten checkpoint.
+                    Path(model + ".new").write_bytes(blob)
+                    os.replace(model + ".new", model)
+                    deadline = time.monotonic() + 30
+                    while sc.stats()["model_reloads"] < r:
+                        if time.monotonic() > deadline:
+                            fail(f"[serve] reload {r} did not happen: " + "".join(log)[-2000:])
+                        time.sleep(0.05)
+                    rss.append(vm_rss_mib(proc.pid))
+            failed_ticks = [ln for ln in log if "tick failed" in ln]
+            if failed_ticks:
+                fail(f"[serve] the daemon logged failed ticks: {failed_ticks[:3]}")
+            f_p, c_p = percentiles_ms(feed_lat), percentiles_ms(cur_lat)
+            print(f"[serve] daemon: ready {ready_s:.2f} s after spawn; {S} streams at a 100 ms "
+                  f"cadence for {PACED_PERIODS} periods (i16 and mu-law interleaved), then the "
+                  f"rest of each clip at once: FEED (to its taking) p50/p95/p99 "
+                  f"{f_p['p50']:.2f}/{f_p['p95']:.2f}/{f_p['p99']:.2f} ms, CURRENT "
+                  f"{c_p['p50']:.2f}/{c_p['p95']:.2f}/{c_p['p99']:.2f} ms; server tick ms "
+                  f"p50/p95/p99 {paced_stats.get('tick_ms_p50')}/{paced_stats.get('tick_ms_p95')}/"
+                  f"{paced_stats.get('tick_ms_p99')} over {paced_stats.get('ticks_measured')} "
+                  f"ticks; first verdict cold {cold_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms; "
+                  f"RSS MiB when ready {rss_ready:.1f}, before and after each of {RELOADS} reloads "
+                  + ", ".join(f"{r:.1f}" for r in rss) + f" | {card}")
+            bare_out = bare.communicate(timeout=120)[0]
+            try:
+                rss_bare = [float(x) for x in bare_out.split()[-2:]]
+            except ValueError:
+                fail(f"[serve] the bare process printed {bare_out[-500:]!r}")
+            print(f"[serve] a bare process beside it: RSS {rss_bare[0]:.1f} MiB after import "
+                  f"torch, {rss_bare[1]:.1f} MiB after one CUDA product | {card}")
+            print(f"[serve] daemon: FINALIZE verdicts equal the in-process ones on {d_compared} "
+                  f"of {S} streams, confidences within {d_worst:.2e} relative")
+            proc.terminate()
+            rc = proc.wait(timeout=30)
+            if rc != 0:
+                fail(f"[serve] the daemon exited {rc} on SIGTERM")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        report["serve_daemon"] = {
+            "ready_s": ready_s, "feed_ms": f_p, "current_ms": c_p,
+            "server_tick_ms": {k: paced_stats.get(f"tick_ms_{k}") for k in ("p50", "p95", "p99")},
+            "ticks_measured": paced_stats.get("ticks_measured"),
+            "first_verdict_cold_ms": cold_s * 1e3, "first_verdict_warm_ms": warm_s * 1e3,
+            "rss_mib_ready": rss_ready, "rss_mib_by_reload": rss, "rss_mib_bare": rss_bare,
+            "compared": d_compared,
+            "conf_max_rel": d_worst,
+            "wires": paced_stats.get("wire_dispatches")}
+
+        # 3. The two-child LocalFleet, idle since it became ready.
+        fleet_thread.join(timeout=200)
+        if "endpoints" not in fleet_box:
+            fail(f"[serve] the fleet did not start: {fleet_box.get('error')!r}")
+        endpoints, fleet_ready = fleet_box["endpoints"], fleet_box["ready_s"]
+        t0 = time.perf_counter()
+        with FleetClient(endpoints, timeout=120.0) as client:
+            fids = [client.open() for _ in range(S)]
+            homes = {client.home(f) for f in fids}
+            for a in range(0, len(pcms[0]), RATE):  # 1 s of every stream a round
+                for i, fid in enumerate(fids):
+                    pcm, enc = chunk(i, a, a + RATE)
+                    client.feed(fid, pcm.tobytes() if enc else pcm, wire=enc or "i16")
+            fleet_finals = [client.finalize(f) for f in fids]
+        fleet_s = time.perf_counter() - t0
+        if homes != set(endpoints):
+            fail(f"[serve] the fleet placed streams on {homes} of {endpoints}")
+        f_compared, f_worst = check_verdicts("[serve] fleet vs in process", fleet_finals, finals,
+                                             margins)
+        print(f"[serve] fleet: 2 children on the card ready {fleet_ready:.2f} s after their "
+              f"spawn (beside the daemon's), {S} streams round-robined in {fleet_s:.2f} s; "
+              f"verdicts equal the in-process ones on {f_compared} of {S} streams, "
+              f"confidences within {f_worst:.2e} relative")
+        report["serve_fleet"] = {"ready_s": fleet_ready, "s": fleet_s, "compared": f_compared,
+                                 "conf_max_rel": f_worst}
+    finally:
+        if bare.poll() is None:
+            bare.kill()
+            bare.wait(timeout=10)
+        if fleet_thread.ident is not None:  # started
+            fleet_thread.join(timeout=200)
+        fleet.stop()
 
 
 def main() -> int:
@@ -1075,6 +1553,20 @@ def main() -> int:
         top_ok = sum(1 for lst, s in zip(lists, spk) if lst and lst[0] == s)
         print(f"[votes] {len(lists)} clips, {win_kid} launches {vote_launches}, "
               f"{vote_s:.3f} s, top-voted == own speaker for {top_ok}")
+
+        mark("stream")
+        # 6b. Streaming on the trained model, then serving: in process, the
+        # --serve daemon and a two-child fleet.  No kernel of the port runs
+        # there; the counts are zeroed before and must not move.
+        serve_t0 = time.perf_counter()
+        stream_phase(net, list(query_pcm), dev, extractor, card, report, zero_counts)
+        mark("serve")
+        serve_phase(net, list(query_pcm), dev, card, work, report)
+        serve_counts = read_counts("stream and serve")
+        if any(serve_counts.values()):
+            fail(f"streaming and serving launched a kernel: {serve_counts}")
+        print(f"[serve] streaming and serving phases {time.perf_counter() - serve_t0:.1f} s; "
+              f"kernel launches {serve_counts} (none on this path)")
 
         mark("K7 check")
         # K7 on the identify batch, every window of the 64 held-out clips,

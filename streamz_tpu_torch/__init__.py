@@ -6,7 +6,8 @@ and numpy, never ``jax`` and nothing of ``streamz_tpu``: it keeps its own
 copies.  Every TPU kernel on a ported path becomes a hand-written Hopper
 kernel under ``csrc/``, built with ``nvcc`` at first use.
 
-Ported so far: every entry point of the Rust reference.  The default
+Ported so far: every entry point of the Rust reference and the JAX
+package's streaming and serving layer.  The default
 training run (corpus training through K5, the discovery loop through K6,
 its features kept on the card in a ``DeviceFeatureStore``), ``--eval``,
 ``--check-embeddings``, ``--cluster-embeddings``, ``--profile``,
@@ -17,14 +18,16 @@ or K2 (``csrc/mfcc_v3.cu``) as measured; the reference's library surface
 below, with ``pretrain_network`` and ``train_from_files`` augmenting on the
 card; the gated vote pipeline
 (:func:`streamz_tpu_torch.infer.identify.identify_speaker_list_batch`) and
-the bench twin (``python -m streamz_tpu_torch.bench``, with K7).  Still to
-port: the JAX package's streaming and serving, its host runtime and its
-multi-device paths.  Entry points run on ``cuda`` unless the caller asks
-for ``cpu``.
+the bench twin (``python -m streamz_tpu_torch.bench``, with K7); live
+streams (``StreamingIdentifier``, ``MultiStreamIdentifier`` with its f32,
+i16 and G.711 wires) and the TCP daemon behind ``--serve`` with its local
+fleet (``app/fleet.py``).  Still to port: the JAX package's host runtime
+and its multi-device paths.  Entry points run on ``cuda`` unless the
+caller asks for ``cpu``.
 
 The names exported here mirror the reference crate's ``pub`` surface
-(``streamz-rs/src/lib.rs``) as the JAX package's ``__all__`` does, less
-the streaming and serving names.
+(``streamz-rs/src/lib.rs``) plus the streaming and serving names, as the
+JAX package's ``__all__`` does.
 """
 
 from streamz_tpu_torch.config import (
@@ -84,6 +87,15 @@ from streamz_tpu_torch.io.audio import (
     load_wav_samples,
 )
 from streamz_tpu_torch.app.corpus import train_corpus
+from streamz_tpu_torch.io.g711 import (
+    alaw_decode,
+    alaw_encode,
+    ulaw_decode,
+    ulaw_encode,
+)
+from streamz_tpu_torch.app.serve import MultiStreamIdentifier
+from streamz_tpu_torch.app.server import SpeakerServer, StreamClient
+from streamz_tpu_torch.app.stream import StreamingIdentifier
 from streamz_tpu_torch.nn.drivers import (
     pretrain_from_features,
     pretrain_network,
@@ -111,13 +123,19 @@ __all__ = [
     "WITH_DELTAS",
     "DeviceFeatureStore",
     "FeatureExtractor",
+    "MultiStreamIdentifier",
     "SimpleNeuralNet",
     "SpeakerNet",
+    "SpeakerServer",
+    "StreamClient",
+    "StreamingIdentifier",
     "corpus_step",
     "train_corpus",
     "audio_metadata",
     "average_features",
     "average_vectors",
+    "alaw_decode",
+    "alaw_encode",
     "batch_resample",
     "cluster_embeddings",
     "compute_speaker_embeddings",
@@ -155,6 +173,8 @@ __all__ = [
     "set_wav_cache_enabled",
     "train_from_feature_map",
     "train_from_files",
+    "ulaw_decode",
+    "ulaw_encode",
     "wav_cache_enabled",
     "with_thread_extractor",
 ]

@@ -10,6 +10,10 @@
   python -m streamz_tpu_torch --decode <out> [--checksum <hex>]
   python -m streamz_tpu_torch --identify <file>... [--threshold <v>]
                               [--no-autotune] [--device cuda|cpu]
+  python -m streamz_tpu_torch --serve [port] [--serve-streams <n>]
+                              [--serve-max-buffer <seconds>]
+                              [--serve-idle-timeout <seconds>]
+                              [--threshold <v>] [--device cuda|cpu]
 
 A bare run is the default training run, as ``python -m streamz_tpu`` is:
 in a directory holding ``train_files.txt`` (one ``path`` or
@@ -42,6 +46,14 @@ carries on.  ``--decode <out>`` reads ``model.npz``, recovers the hidden
 bytes with the same checksum and writes them to ``<out>``, before and
 instead of any training (``src/main.rs:450-469``).
 
+``--serve [port]`` (default 7071; 0 binds an ephemeral port) runs the TCP
+live-identification daemon (:mod:`streamz_tpu_torch.app.server`, the JAX
+daemon's wire protocol) on ``model.npz``: ``--serve-streams`` concurrent
+streams (default 64) batched into shared device dispatches, at most
+``--serve-max-buffer`` seconds of audio queued per stream (default 30),
+connections silent for ``--serve-idle-timeout`` seconds dropped (default
+off), and the model hot-swapped whenever ``model.npz`` changes.
+
 Every mode runs on ``cuda`` unless ``--device cpu`` is given, and fails
 when CUDA is missing rather than falling back to the CPU.  On the card the
 frontend is the measured winner of K1 and K2 (``dsp/features.py``), probed
@@ -49,8 +61,8 @@ at first use and cached per card; ``--no-autotune`` skips the probe, so a
 cold cache takes K1.  The frontend's outputs stay on the card in a
 ``DeviceFeatureStore`` for the discovery loop, ``--eval``, ``--identify``
 and finalize; ``STREAMZ_STORE_MAX_MB`` caps it (default 4096, 0 or less
-turns it off).  The other modes of the JAX package's CLI (``--serve``, the
-multi-host flags) are not yet ported: they print so and return 2.
+turns it off).  The JAX package's multi-host flags are not yet ported:
+they print so and return 2.
 """
 
 from __future__ import annotations
@@ -85,9 +97,10 @@ from streamz_tpu_torch.stego import codec
 
 _VALUE_FLAGS = ("--threshold", "--device", "--burn-in-limit", "--max-speakers",
                 "--eval-split", "--cluster-embeddings", "--encode", "--decode",
-                "--checksum")
+                "--checksum", "--serve-streams", "--serve-max-buffer",
+                "--serve-idle-timeout")
 _SWITCHES = ("--identify", "--force", "--retrain", "--no-cache-wav", "--no-autotune",
-             "--eval", "--check-embeddings", "--profile")
+             "--eval", "--check-embeddings", "--profile", "--serve")
 
 
 def _flag_value(args: List[str], flag: str, warn: bool = True) -> Optional[str]:
@@ -282,6 +295,9 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
 
     if identify_paths:
         return _identify_mode(identify_paths, threshold, extractor, timer)
+
+    if "--serve" in args:
+        return _serve_mode(args, threshold, dev)
 
     train_files = fl.load_train_files(config.TRAIN_FILE_LIST)
     if not train_files:
@@ -522,6 +538,62 @@ def _identify_mode(paths: List[str], threshold: float, extractor: FeatureExtract
     if not present:
         print("No input file could be loaded", file=sys.stderr)
         return 1
+    return 0
+
+
+def _serve_mode(args: List[str], threshold: float, dev) -> int:
+    """``--serve [port]``: the TCP live-identification daemon on ``dev``
+    (``streamz_tpu/cli.py:557-629``).  Loads ``model.npz`` (required),
+    serves ``--serve-streams`` concurrent streams batched into shared
+    dispatches (:mod:`streamz_tpu_torch.app.server`), and hot-swaps the
+    model whenever the checkpoint changes."""
+    from streamz_tpu_torch.app.server import SpeakerServer
+
+    port = 7071
+    maybe = _flag_value(args, "--serve", warn=False)
+    if maybe and not maybe.startswith("--"):
+        try:
+            port = int(maybe)
+        except ValueError:
+            print(f"Invalid value for --serve '{maybe}', using default {port}",
+                  file=sys.stderr)
+    n_streams = _parse_int(args, "--serve-streams")
+    if n_streams is None:
+        n_streams = 64
+    elif n_streams < 1:
+        print(f"Invalid value for --serve-streams '{n_streams}', using default 64",
+              file=sys.stderr)
+        n_streams = 64
+    # Per-slot backlog cap (transport backpressure): seconds of 44.1 kHz
+    # audio a client may queue ahead of the ticker before FEEDs are refused.
+    max_buffer_s = _parse_float(args, "--serve-max-buffer", 30.0)
+    if max_buffer_s <= 0:
+        print(f"Invalid value for --serve-max-buffer '{max_buffer_s}', using "
+              "default 30.0", file=sys.stderr)
+        max_buffer_s = 30.0
+    # Idle reaping: unset or <= 0 keeps slots for the life of the connection.
+    idle_timeout = _parse_float(args, "--serve-idle-timeout", 0.0)
+    try:
+        net = checkpoint.load(config.MODEL_PATH, device=dev)
+    except Exception as e:
+        print(f"Failed to load model: {e}", file=sys.stderr)
+        return 1
+    srv = SpeakerServer(
+        net,
+        port=port,
+        n_streams=n_streams,
+        threshold=threshold,
+        watch_model=config.MODEL_PATH,
+        max_buffered_samples=int(max_buffer_s * config.DEFAULT_SAMPLE_RATE),
+        idle_timeout=idle_timeout if idle_timeout > 0 else None,
+    )
+    srv.start()
+    print(
+        f"Serving {n_streams} stream slots on 127.0.0.1:{srv.port} "
+        f"({net.output_size()} speakers; watching {config.MODEL_PATH})",
+        flush=True,
+    )
+    srv.serve_forever()
     return 0
 
 

@@ -853,3 +853,134 @@ def test_pretrain_network_launches_the_frontend_and_k6_per_epoch(cuda_device):
                                     key=prng.PRNGKey(0))
     assert k1.launches == 3 and tk.train_windows_k6.launches == 3
     assert np.isfinite(loss) and loss > 0
+
+
+# ---------------------------------------------------------------------------
+# Streaming and serving (app/stream.py, app/serve.py): no kernel of the
+# port runs there; the step's torch ops on the card against the CPU.
+# ---------------------------------------------------------------------------
+
+from streamz_tpu_torch.app import serve as tserve  # noqa: E402
+from streamz_tpu_torch.app import stream as tstream  # noqa: E402
+from streamz_tpu_torch.io import g711  # noqa: E402
+
+
+def _stream_inputs(S, k, seed, capacity):
+    rng = np.random.default_rng(seed)
+    pcm = rng.normal(0, 6000, (3, S, k, 400)).clip(-32768, 32767).astype(np.int16)
+    n_new = rng.integers(0, k + 1, (3, S)).astype(np.int32)
+    return pcm, n_new
+
+
+@pytest.mark.cuda
+def test_batched_stream_step_on_card_matches_cpu(cuda_device):
+    """Three steps and the flush of 64 slots at full width on the card
+    against the CPU: the FP32 products in another order, so features 1e-4
+    and the vote sums 1e-4 relative; the counts and masks exact."""
+    from streamz_tpu_torch.device import resolve_device
+
+    resolve_device(cuda_device)  # TF32 off, as every entry point sets it
+    S, k = 64, 16
+    params = init_params(60, 512, 256, 8, seed=3, device="cpu")
+    pcm, n_new = _stream_inputs(S, k, 5, 128)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = {name: v.to(dev) for name, v in params.items()}
+        carry = tstream.zero_carry(S, 128, dev)
+        feats = []
+        with torch.no_grad():
+            for t in range(3):
+                blocks = torch.from_numpy(pcm[t].astype(np.float32) / 32767.0).to(dev)
+                carry, f, m = tstream.stream_step(p, carry, blocks,
+                                                  torch.from_numpy(n_new[t]).to(dev), 8)
+                feats.append((f.cpu(), m.cpu()))
+            votes, count, f, m = tstream.finalize_step(p, carry, 8)
+        out[str(dev)] = ([c.cpu() for c in carry], feats, votes.cpu(), count.cpu())
+    (cc, cf, cv, cn), (gc, gf, gv, gn) = out["cpu"], out[str(cuda_device)]
+    for (a, am), (b, bm) in zip(cf, gf):
+        assert torch.equal(am, bm)
+        assert float((a - b).abs().max()) <= 1e-4
+    assert torch.equal(cn, gn) and torch.equal(cc[3], gc[3]) and torch.equal(cc[6], gc[6])
+    assert float(((cv - gv).abs() / cv.abs().clamp(min=1e-3)).max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("law", ["i16", "ulaw", "alaw"])
+def test_narrow_wires_on_card_equal_host_decode_bit_for_bit(cuda_device, law):
+    """The i16 and u8 wires converted on the card give the very bits of the
+    f32 step on PCM decoded and converted on the host."""
+    S, k = 64, 16
+    params = init_params(60, 512, 256, 8, seed=4, device=cuda_device)
+    pcm, n_new = _stream_inputs(S, k, 6, 128)
+    pcm, n_new = pcm[0], torch.from_numpy(n_new[0]).to(cuda_device)
+    carry = tstream.zero_carry(S, 128, cuda_device)
+    with torch.no_grad():
+        if law == "i16":
+            host = pcm
+            got = tserve.step_i16(params, carry, torch.from_numpy(pcm).to(cuda_device), n_new, 8)
+        else:
+            codes = g711.ulaw_encode(pcm) if law == "ulaw" else g711.alaw_encode(pcm)
+            host = g711.decode(codes, law)
+            table = torch.as_tensor(g711.TABLES[law][0], device=cuda_device)
+            got = tserve.step_u8(params, carry, torch.from_numpy(codes).to(cuda_device),
+                                 n_new, 8, table)
+        f32 = torch.from_numpy(host.astype(np.float32) / 32767.0).to(cuda_device)
+        want = tstream.stream_step(params, carry, f32, n_new, 8)
+    for a, b in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_streaming_feed_on_card_reads_nothing_back(cuda_device):
+    """``StreamingIdentifier.feed`` enqueues its dispatches without a host
+    synchronisation: no sync under ``set_sync_debug_mode('error')``."""
+    net = SpeakerNet.new(output=5, seed=0, device=cuda_device)
+    clip = np.random.default_rng(7).normal(0, 3000, 44100).astype(np.int16)
+    sid = tstream.StreamingIdentifier(net, threshold=0.0)
+    sid.feed(clip[:8000])  # first use builds the constants
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(8000, len(clip), 4410):
+            sid.feed(clip[i:i + 4410])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = tstream.StreamingIdentifier(SpeakerNet.new(output=5, seed=0, device="cpu"),
+                                      threshold=0.0)
+    ref.feed(clip)
+    got, want = sid.finalize(), ref.finalize()
+    assert got[0] == want[0] and abs(got[1] - want[1]) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_staging_buffer_not_reused_before_its_copy_completes(cuda_device):
+    """64 slots fed on every wire in back-to-back ticks, one dispatch each
+    and no synchronisation between them, against the same feeds with the
+    card synchronised after every tick: the same bits."""
+    net = SpeakerNet.new(output=8, seed=0, device=cuda_device)
+    rng = np.random.default_rng(8)
+    clips = [rng.normal(0, 3000, 3 * 44100).astype(np.int16) for _ in range(64)]
+    runs = []
+    for sync in (False, True):
+        srv = tserve.MultiStreamIdentifier(net, n_streams=64, threshold=0.0)
+        sids = [srv.open() for _ in clips]
+        for a in range(0, len(clips[0]), 6400):
+            for sid, c in zip(sids, clips):
+                piece = c[a:a + 6400]
+                if sid % 3 == 1:
+                    srv.feed(sid, g711.ulaw_encode(piece), encoding="ulaw")
+                elif sid % 3 == 2 and a % 12800 == 0:
+                    srv.feed(sid, piece.astype(np.float32) / 32767.0)
+                else:
+                    srv.feed(sid, piece)
+            srv.tick(drain=False)
+            if sync:
+                torch.cuda.synchronize()
+        while srv.tick(drain=False):
+            if sync:
+                torch.cuda.synchronize()
+        runs.append(([c.clone() for c in srv._carry], srv.stats()["wire_dispatches"]))
+    (a, wa), (b, wb) = runs
+    assert wa == wb and sum(wa.values()) > 10
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

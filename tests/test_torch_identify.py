@@ -211,12 +211,13 @@ def test_identify_all_inputs_failed(corpus, monkeypatch, capsys):
     assert "No input file could be loaded" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("args", [["--serve"], ["--coordinator", "localhost:1234"],
-                                  ["--identify", "a.wav", "--serve"],
+@pytest.mark.parametrize("args", [["--process-id", "0"], ["--coordinator", "localhost:1234"],
+                                  ["--identify", "a.wav", "--process-id", "1"],
                                   ["--no-cache-wav", "--num-processes", "2"]])
 def test_unported_flags_return_2(tmp_path, monkeypatch, capsys, args):
-    """The JAX CLI's modes that are not ported yet are refused before any
-    work: rc 2 and no model is written."""
+    """The JAX CLI's modes that are not ported yet (the multi-host flags;
+    ``--serve`` is ported) are refused before any work: rc 2 and no model
+    is written."""
     monkeypatch.chdir(tmp_path)
     assert tcli.main(args) == 2
     assert "not yet ported to streamz_tpu_torch" in capsys.readouterr().err

@@ -44,7 +44,8 @@ def test_module_imports_no_jax_and_no_reference_package(path):
 @pytest.mark.parametrize("module", [
     "runtime/watchdog.py", "runtime/profiler.py", "app/evaluate.py",
     "app/embedquality.py", "infer/cluster.py", "stego/codec.py", "dsp/augment.py",
-    "nn/drivers.py",
+    "nn/drivers.py", "io/g711.py", "app/stream.py", "app/serve.py", "app/server.py",
+    "app/fleet.py",
 ])
 def test_ported_modules_are_scanned_and_name_their_reference(module):
     """The modules ported from the JAX package are among those the import
