@@ -7,7 +7,8 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
 
 1. Build all seven kernels, K1-K7 (``streamz_tpu_torch/csrc/{mfcc_base,
    mfcc_v3,mfcc_v2,mfcc_frames,corpus_grads,file_train,forward_probs}.cu``)
-   with nvcc for sm_90a, one nvcc per source, all at once.
+   with nvcc for sm_90a, one nvcc per source, all at once, and beside them
+   the native ingest layer (``streamz_tpu_torch/native/``) with g++.
 2. Hold the MFCC kernels K1-K4 against their plain PyTorch versions on the
    card at the launcher's edge shapes, a clip shorter than one block, the
    edges of their shared tile (an unaligned base and T % 4 != 0 among
@@ -110,6 +111,33 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    product; FINALIZE verdicts those of (1); no failed tick, exit 0 on
    SIGTERM. (3) A two-child ``LocalFleet`` on the card, started beside the
    daemon: the verdicts of (1).
+   ``[native]``: the C++ ingest layer (``streamz_tpu_torch/native/``, built
+   by g++ into ``_build/``; the phase fails if it is unavailable) on the 64
+   training WAVs and 16 held-out clips written at 48 and 22.05 kHz, bit for
+   bit against the Python thread pool, both timed; the default run of
+   phase 4 must have ingested through it and never through the pool.
+   ``[dist]``: the multi-process run on the one card, every rank a process
+   of its own (``chip_smoke.py --dist-worker``, killed at
+   ``DIST_DEADLINE_S``).  Two ranks over gloo: the data-parallel corpus
+   training (100 epochs, K5's sums form on each rank's half of every step,
+   one all-reduce) against one process's ``train_corpus`` within
+   ``DIST_PARAM_TOL``; the PCM-halo frontend (K1 on each rank's extended
+   blocks) on a 170 s clip against the unsharded K1 features within
+   ``K1_TOL``, whether they are bit-identical printed; the batched identify
+   (clip-sharded) and the long-clip identify (PCM halo) against one
+   process's verdicts wherever no window lies within ``K1_TOL`` of a vote
+   change; the per-step K5 and all-reduce times of each rank.  Then the CLI
+   (``python -m streamz_tpu_torch`` with ``--coordinator/--num-processes/
+   --process-id``) as two processes against one, from a cold frontend
+   cache (no probe under a mesh: both run K1): the default run on phase 4's
+   corpus, the same ``train_files.txt``, K1, K5 and K6 launched on each
+   rank; ``--eval`` of the single process's ``model.npz`` as two
+   processes, the same metrics; ``--eval`` of each run's own model
+   printed beside them, with how many targets lie within the models' float
+   noise (the DP corpus training's summation order, carried through the
+   discovery loop) of a decision.  Then one rank over NCCL: the DP step
+   bit-identical to K5's sums with ``_apply_step``, its K5 and all-reduce
+   times.  Nothing here is a multi-GPU speed: the ranks share one card.
 7. The GPU path against the CPU path on 8 clips (features, embeddings,
    similarities, and the gate's verdicts wherever the similarities lie
    farther from a gate bound than the two paths differ).
@@ -177,6 +205,7 @@ import os
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -234,6 +263,13 @@ K7_EXACT = [(60, 512, 256, 128, 1), (60, 512, 256, 128, 63), (60, 512, 256, 128,
             (60, 512, 256, 4096, 70464), (60, 100, 52, 128, 70464), (60, 4096, 2048, 128, 65),
             (60, 4096, 2048, 128, 4096)]
 GPU_VS_CPU_TOL = 1e-3  # features / embeddings / sims / margins, GPU vs CPU
+# [dist]: the DP corpus training of two ranks against one process after the
+# corpus phase's 500 steps (their K5 sums split each step's rows in two and
+# add the halves, another f32 order; K6's 1e-3 after 1280 steps is the
+# like gate), a spawned rank's deadline, and the steps timed per rank.
+DIST_PARAM_TOL = 1e-3
+DIST_DEADLINE_S = 300
+DIST_TIMED_STEPS = 20
 # The steganography codec's payloads, 64 B to the 128 KiB cap (w3 of
 # [256, 1,048,576] f32 = 1 GiB), and the payload the --encode run hides.
 STEGO_BYTES = (64, 4096, 65536, 131072)
@@ -922,6 +958,448 @@ def serve_phase(net, pcms, dev, card, work, report):
         fleet.stop()
 
 
+# ---------------------------------------------------------------------------
+# [native] and [dist].
+# ---------------------------------------------------------------------------
+
+
+def native_phase(work: str, names, query_pcm, card, report):
+    """``[native]``: the C++ ingest layer (built by g++ into ``_build/``) on
+    the smoke corpus (the 64 training WAVs, and 16 held-out clips written
+    with 48 kHz and 22.05 kHz headers so the resampler runs) against the
+    Python thread pool: bit for bit, both timed (host code)."""
+    from streamz_tpu_torch.io import audio, native, wav
+
+    if not native.available():
+        fail(f"[native] the C++ ingest layer is unavailable: {native.unavailable_reason}")
+    paths = [str(Path(work) / n) for n in names]
+    for i in range(16):
+        p = str(Path(work) / f"native_{i:02d}.wav")
+        wav.write_wav(p, query_pcm[i], sample_rate=(48000, 22050)[i % 2])
+        paths.append(p)
+    runs = {"native": [], "thread pool": []}
+    outs = {}
+    for which in ("thread pool", "native", "native", "thread pool"):
+        t0 = time.perf_counter()
+        got = (audio.batch_resample(paths) if which == "native"
+               else audio.batch_resample_threads(paths))
+        runs[which].append((time.perf_counter() - t0) * 1e3)
+        outs[which] = got
+    a, b = outs["native"], outs["thread pool"]
+    if [p for p, _ in a] != paths or [p for p, _ in b] != paths:
+        fail("[native] a clip was dropped")
+    if not all(np.array_equal(x, y) and x.dtype == y.dtype for (_, x), (_, y) in zip(a, b)):
+        fail("[native] the native ingest differs from the thread pool's")
+    audio_s = sum(len(x) for _, x in a) / RATE
+    print(f"[native] {len(paths)} WAVs ({audio_s:.0f} s of 44.1 kHz audio after "
+          f"resampling 16 of them): native ingest {runs['native'][0]:.1f} / "
+          f"{runs['native'][1]:.1f} ms, Python thread pool {runs['thread pool'][0]:.1f} / "
+          f"{runs['thread pool'][1]:.1f} ms (order: pool, native, native, pool), "
+          f"bit-identical; library {native.so_path().name}, {os.cpu_count()} host cores "
+          f"| {card}")
+    report["native"] = {"clips": len(paths), "audio_s": audio_s, "ms": runs,
+                        "host_cores": os.cpu_count()}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(mode: str, dirs, extra=(), env=None, tag=None):
+    """Run ``chip_smoke.py --dist-worker <mode>`` as ``len(dirs)`` ranks,
+    rank r in ``dirs[r]``, each rank's output in
+    ``chiprun_out/chip_smoke_dist_<tag>_<r>.log`` (``tag`` defaults to
+    ``mode``); kills every rank at ``DIST_DEADLINE_S`` and fails; returns
+    each rank's ``out_<r>.json``."""
+    import subprocess
+
+    world, port = len(dirs), _free_port()
+    tag = tag or mode
+    env = dict(os.environ if env is None else env, PYTHONPATH=str(HERE))
+    logs = HERE / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    procs, files = [], []
+    for r, d in enumerate(dirs):
+        f = open(logs / f"chip_smoke_dist_{tag}_{r}.log", "w")
+        files.append(f)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--dist-worker", mode, str(r),
+             str(world), str(port), str(d), *extra],
+            cwd=str(d), env=env, stdout=f, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                fail(f"[dist] {mode}: rank {r} of {world} missed the "
+                     f"{DIST_DEADLINE_S} s deadline (logs in chiprun_out/)")
+            if rc != 0:
+                fail(f"[dist] {mode}: rank {r} of {world} exited {rc}: "
+                     + (logs / f"chip_smoke_dist_{tag}_{r}.log").read_text()[-3000:])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    return [json.loads((Path(d) / f"out_{r}.json").read_text()) for r, d in enumerate(dirs)]
+
+
+def dist_worker(argv) -> int:
+    """One rank of a ``[dist]`` job: ``<mode> <rank> <world> <port> <dir>
+    [cli args]``.  ``cli``: the CLI with the multi-process flags (none for a
+    world of 1) in ``dir``; ``lib``: the DP corpus training, the PCM-halo
+    frontend, the batched and long-clip identify over the mesh; ``nccl``:
+    the DP step over a 1-rank NCCL group.  Each writes ``out_<rank>.json``
+    (and rank 0 of ``lib`` its arrays to ``out.npz``) with its kernel
+    counts."""
+    mode, rank, world, port, work = argv[0], int(argv[1]), int(argv[2]), argv[3], Path(argv[4])
+    sys.path.insert(0, str(HERE))
+    from streamz_tpu_torch import config
+    from streamz_tpu_torch.app.corpus import train_corpus
+    from streamz_tpu_torch.dsp import mfcc_kernel
+    from streamz_tpu_torch.dsp.features import FeatureExtractor
+    from streamz_tpu_torch.infer.identify import identify_speaker, identify_speaker_list_batch
+    from streamz_tpu_torch.nn import checkpoint
+    from streamz_tpu_torch.nn import train_kernels as tk
+    from streamz_tpu_torch.nn.forward_kernel import forward_probs_k7
+    from streamz_tpu_torch.nn.model import SpeakerNet
+    from streamz_tpu_torch.parallel import comm
+    from streamz_tpu_torch.parallel import data_parallel as dp
+    from streamz_tpu_torch.parallel import window_parallel as wp
+
+    counters = {**mfcc_kernel.WRAPPERS, "K5": tk.corpus_grads_k5, "K6": tk.train_windows_k6,
+                "K7": forward_probs_k7}
+
+    def zero():
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: c.launches for k, c in counters.items()}
+
+    out = {}
+    if mode == "cli":
+        os.chdir(work)
+        flags = [] if world == 1 else ["--coordinator", f"127.0.0.1:{port}",
+                                       "--num-processes", str(world), "--process-id", str(rank)]
+        zero()
+        t0 = time.perf_counter()
+        rc, lines, rep = run_cli(list(argv[5:]) + flags)
+        out = {"rc": rc, "lines": lines, "counts": counts(), "s": time.perf_counter() - t0,
+               "phase_s": rep.get("phase_seconds"), "metrics": rep.get("metrics"),
+               "processed": len(rep.get("decision_margins") or [])}
+        (work / f"out_{rank}.json").write_text(json.dumps(out))
+        return 0 if rc == 0 else 1
+
+    dev = comm.initialize_distributed(f"127.0.0.1:{port}", world, rank)
+    mesh = comm.make_mesh()
+    d = np.load(work / "in.npz")
+    ns = int(d["ns"])
+    out.update(backend=comm.backend(), device=str(dev))
+
+    def step_times(params, x, y, w):
+        """(K5 sums ms, all-reduce ms) per step on this rank's rows: CUDA
+        events around each, medians of DIST_TIMED_STEPS."""
+        k5, ar = [], []
+        rows = tk.Batch(x, y, w)
+        flat = tk.corpus_rows_sums_k5(params, rows, ns)  # warm
+        comm.psum(flat, mesh)
+        for _ in range(DIST_TIMED_STEPS):
+            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            e[0].record()
+            flat = tk.corpus_rows_sums_k5(params, rows, ns)
+            e[1].record()
+            comm.psum(flat, mesh)
+            e[2].record()
+            torch.cuda.synchronize()
+            k5.append(e[0].elapsed_time(e[1]))
+            ar.append(e[1].elapsed_time(e[2]))
+        return float(np.median(k5)), float(np.median(ar))
+
+    pool_x, pool_y = d["pool_x"], d["pool_y"]
+    n_step = min(4096, len(pool_x))  # one corpus step's rows
+    if mode == "nccl":
+        x, y = pool_x[:n_step], pool_y[:n_step]
+        w = np.ones(n_step, np.float32)
+        net = SpeakerNet.new(output=ns, seed=0, device=dev)
+        p_dp, p_sums, p_step = (net.working_params() for _ in range(3))
+        zero()
+        _, loss = dp.make_dp_train_step(mesh)(p_dp, x, y, w, ns, K5_LR)
+        out["counts"] = counts()
+        batch = tk.Batch(*(torch.from_numpy(a).to(dev) for a in (x, y, w)))
+        grads, loss_sum, count = tk.corpus_rows_grads_k5(p_sums, batch, ns)
+        tk._apply_step(p_sums, grads, loss_sum, count, K5_LR)
+        tk.corpus_step_k5(p_step, batch, ns, K5_LR)
+        out["vs_sums_bit_identical"] = all(torch.equal(p_dp[k], p_sums[k]) for k in p_dp)
+        out["vs_step_max_abs"] = max(float((p_dp[k] - p_step[k]).abs().max()) for k in p_dp)
+        out["loss"] = float(loss)
+        out["k5_ms"], out["all_reduce_ms"] = step_times(
+            p_dp, *(t[: n_step // world] for t in batch))
+        (work / f"out_{rank}.json").write_text(json.dumps(out))
+        comm.shutdown()
+        return 0
+
+    # lib: the DP corpus training as the corpus phase runs it.
+    net = SpeakerNet.new(output=ns, seed=0, device=dev)
+    zero()
+    t0 = time.perf_counter()
+    losses = train_corpus(net, pool_x, pool_y, epochs=config.TRAIN_EPOCHS, lr=K5_LR,
+                          dropout=config.DEFAULT_DROPOUT, mesh=mesh, seed=0)
+    torch.cuda.synchronize()
+    out["corpus_s"] = time.perf_counter() - t0
+    out["corpus_counts"] = counts()
+    arrays = {f"corpus_{k}": v.cpu().numpy() for k, v in net.params.items()}
+    arrays["corpus_losses"] = np.asarray(losses)
+    bl = n_step // world
+    lo = rank * bl
+    out["k5_ms"], out["all_reduce_ms"] = step_times(
+        net.working_params(), torch.from_numpy(pool_x[lo:lo + bl]).to(dev),
+        torch.from_numpy(pool_y[lo:lo + bl]).to(dev), torch.ones(bl, device=dev))
+    zero()
+    t0 = time.perf_counter()
+    arrays["halo_feats"] = wp.mfcc_features_pcm_sharded(d["long"], mesh)
+    out["halo_s"] = time.perf_counter() - t0
+    out["halo_counts"] = counts()
+    trained = checkpoint.load(str(work / "model.npz"), device=dev)
+    ex = FeatureExtractor(device=dev)
+    out["resolved"] = ex.resolved()
+    clips = list(d["clips"])
+    zero()
+    t0 = time.perf_counter()
+    out["lists"] = identify_speaker_list_batch(trained, clips, config.DEFAULT_CONF_THRESHOLD,
+                                               ex, mesh=mesh)
+    out["long_id"] = identify_speaker(trained, d["long"], ex, mesh=mesh)
+    out["identify_s"] = time.perf_counter() - t0
+    out["identify_counts"] = counts()
+    if rank == 0:
+        np.savez(work / "out.npz", **arrays)
+    (work / f"out_{rank}.json").write_text(json.dumps(out))
+    comm.shutdown()
+    return 0
+
+
+def eval_noise(cli, dev):
+    """How far apart the runs' models score the --eval targets: the largest
+    difference of any target's cosine similarity to any stored centroid
+    between the single process's model.npz and a rank's, and how many
+    targets lie within it of an --eval decision (their top-two gap, or
+    their best similarity's distance to the threshold)."""
+    from streamz_tpu_torch import config
+    from streamz_tpu_torch.dsp.features import FeatureExtractor
+    from streamz_tpu_torch.infer.cosine import cosine_matrix_many
+    from streamz_tpu_torch.infer.embed import batch_clip_embeddings
+    from streamz_tpu_torch.io import audio, filelists
+    from streamz_tpu_torch.nn import checkpoint
+
+    base = cli[1][0]
+    targets = filelists.load_target_files(str(base / config.TARGET_FILE_LIST))
+    pcms = [pcm for _, pcm in audio.batch_resample([str(base / p) for p, _ in targets])]
+    feats = FeatureExtractor("pallas_v4", device=dev).extract_batch(pcms)
+
+    def sims(d):
+        net = checkpoint.load(str(d / config.MODEL_PATH), device=dev)
+        cents = np.stack([np.asarray(m, np.float32) for m, _, _ in net.embeddings])
+        return cosine_matrix_many(np.stack(batch_clip_embeddings(net, feats)), cents)
+
+    s1 = sims(base)
+    noise = max(float(np.abs(sims(d) - s1).max()) for d in cli[2])
+    top = np.sort(s1, axis=1)[:, -2:]
+    margin = np.minimum(top[:, 1] - top[:, 0],
+                        np.abs(top[:, 1] - config.DEFAULT_CONF_THRESHOLD))
+    return int((margin <= noise).sum()), noise
+
+
+def dist_phase(work: str, train_pcm, spk, query_pcm, pool, pool_y, dev, card, report,
+               by_path):
+    """``[dist]``: the multi-process run on the one card.  Two ranks over
+    gloo sharing it: the DP corpus training against the single-process
+    ``train_corpus`` (DIST_PARAM_TOL), the PCM-halo frontend against the
+    unsharded K1 features (K1_TOL; the gap printed), the batched and the
+    long-clip identify verdicts against one process's, and the CLI's
+    default run and ``--eval`` as two processes against one (the same
+    labels and metrics).  Then one rank over NCCL: the DP step against K5's
+    sums and ``_apply_step``.  Every rank's K1, K5 and K6 counts are read
+    from its own process; per-step K5 and all-reduce times per rank."""
+    import shutil
+
+    from streamz_tpu_torch import config
+    from streamz_tpu_torch.app.corpus import train_corpus
+    from streamz_tpu_torch.dsp import mfcc
+    from streamz_tpu_torch.dsp.features import FeatureExtractor
+    from streamz_tpu_torch.infer.identify import identify_speaker, identify_speaker_list_batch
+    from streamz_tpu_torch.nn import checkpoint
+    from streamz_tpu_torch.nn.model import SpeakerNet, forward
+    from streamz_tpu_torch.parallel.window_parallel import LONG_CLIP_WINDOW_THRESHOLD
+
+    root = Path(tempfile.mkdtemp(prefix="streamz_chip_smoke_dist_"))
+    lib = root / "lib"
+    lib.mkdir()
+    long_pcm = np.concatenate(list(query_pcm[:17]))  # 170 s
+    n_long = mfcc.window_count_host(len(long_pcm))
+    if n_long < LONG_CLIP_WINDOW_THRESHOLD:
+        fail(f"[dist] the long clip has {n_long} windows, under the threshold")
+    np.savez(lib / "in.npz", pool_x=pool, pool_y=pool_y, ns=N_SPEAKERS, long=long_pcm,
+             clips=query_pcm)
+    shutil.copy(Path(work) / config.MODEL_PATH, lib / "model.npz")
+    t0 = time.perf_counter()
+    outs = spawn_ranks("lib", [lib, lib])
+    lib_s = time.perf_counter() - t0
+    arrays = np.load(lib / "out.npz")
+    for r, o in enumerate(outs):
+        if o["backend"] != "gloo" or o["device"] != "cuda:0" or o["resolved"] != "pallas_v4":
+            fail(f"[dist] rank {r}: backend {o['backend']}, device {o['device']}, "
+                 f"frontend {o['resolved']} (expected gloo, cuda:0, pallas_v4)")
+        for what, key, kid in (("corpus", "corpus_counts", "K5"),
+                               ("PCM halo", "halo_counts", "K1"),
+                               ("identify", "identify_counts", "K1")):
+            by_path[f"[dist] rank {r}, {what}"] = o[key]
+            if o[key][kid] < 1:
+                fail(f"[dist] rank {r} never launched {kid} in the {what} run: {o[key]}")
+    # The single-process references on the card.
+    net1 = SpeakerNet.new(output=N_SPEAKERS, seed=0, device=dev)
+    losses1 = train_corpus(net1, pool, pool_y, epochs=config.TRAIN_EPOCHS, lr=K5_LR,
+                           dropout=config.DEFAULT_DROPOUT, seed=0)
+    corpus_err = max(float(np.abs(arrays[f"corpus_{k}"] - v.cpu().numpy()).max())
+                     for k, v in net1.params.items())
+    loss_err = float(np.abs(arrays["corpus_losses"] - np.asarray(losses1)).max())
+    k1 = FeatureExtractor("pallas_v4", device=dev)
+    want = k1.extract(long_pcm)
+    halo = arrays["halo_feats"]
+    if halo.shape != want.shape or not np.isfinite(halo).all():
+        fail(f"[dist] PCM-halo features {halo.shape}, unsharded {want.shape}")
+    halo_err = float(np.abs(halo - want).max())
+    halo_bits = bool(np.array_equal(halo, want))
+    trained = checkpoint.load(config.MODEL_PATH, device=dev)
+    thr = config.DEFAULT_CONF_THRESHOLD
+    clips = list(query_pcm)
+    lists1 = identify_speaker_list_batch(trained, clips, thr, k1)
+    compared = 0
+    for i, f in enumerate(k1.extract_batch(clips)):
+        with torch.no_grad():
+            probs = forward(trained.params, torch.from_numpy(f).to(dev),
+                            trained.num_speakers).cpu().numpy()
+        _, soft = vote_check(probs, trained.num_speakers, thr, K1_TOL)
+        if soft:
+            continue  # a window within K1_TOL of changing its vote
+        compared += 1
+        for r, o in enumerate(outs):
+            if o["lists"][i] != lists1[i]:
+                fail(f"[dist] rank {r}: clip {i} votes {o['lists'][i]}, one process "
+                     f"{lists1[i]}")
+    long1 = identify_speaker(trained, long_pcm, k1)
+    votes, count = offline_votes(trained, torch.from_numpy(want).to(dev))
+    long_margin = vote_margin(votes, count, trained.num_speakers)
+    if long_margin > K1_TOL and any(o["long_id"] != long1 for o in outs):
+        fail(f"[dist] long-clip verdicts {[o['long_id'] for o in outs]}, one process {long1}")
+    print(f"[dist] 2 ranks over gloo on one card ({lib_s:.1f} s): DP corpus training "
+          f"({config.TRAIN_EPOCHS} epochs) vs one process: params max abs "
+          f"{corpus_err:.2e} (bound {DIST_PARAM_TOL:g}), epoch losses {loss_err:.2e}; K5 "
+          f"launches per rank {[o['corpus_counts']['K5'] for o in outs]}; per step and rank, "
+          + "; ".join(f"rank {r}: K5 sums {o['k5_ms']:.3f} ms, all-reduce "
+                      f"{o['all_reduce_ms']:.3f} ms" for r, o in enumerate(outs))
+          + f" | {card}")
+    print(f"[dist] PCM-halo frontend, a {n_long}-window clip: max abs vs the unsharded "
+          f"K1 features {halo_err:.2e} (bound {K1_TOL:g}), bit-identical: {halo_bits}; K1 "
+          f"launches per rank {[o['halo_counts']['K1'] for o in outs]}; identify: vote "
+          f"lists equal on {compared}/{len(clips)} clips compared (none with a window "
+          f"within {K1_TOL:g} of a vote change skipped otherwise), long-clip verdict "
+          f"{[o['long_id'] for o in outs]} vs {long1} (margin {long_margin:.2e})")
+    if corpus_err > DIST_PARAM_TOL or halo_err > K1_TOL:
+        fail("[dist] the 2-rank run disagrees with one process")
+    report["dist"] = {
+        "lib_s": lib_s, "corpus_max_abs": corpus_err, "corpus_loss_max_abs": loss_err,
+        "halo_max_abs": halo_err, "halo_bit_identical": halo_bits,
+        "identify_compared": compared, "long_margin": long_margin,
+        "ranks": [{k: o[k] for k in ("k5_ms", "all_reduce_ms", "corpus_s", "corpus_counts",
+                                     "halo_counts", "identify_counts")} for o in outs]}
+
+    # The CLI: one process, then two, from a cold frontend cache (no probe
+    # under a mesh: both run K1).
+    cli = {1: [root / "single"], 2: [root / "p0", root / "p1"]}
+    for d in cli[1] + cli[2]:
+        d.mkdir()
+        os.chdir(d)
+        write_corpus(train_pcm, spk, LABELLED_PER_SPEAKER, "train")
+    os.chdir(work)
+    env = dict(os.environ, STREAMZ_AUTOTUNE_CACHE=str(root / "cold.json"),
+               STREAMZ_NO_AUTOTUNE="1")
+    runs = {}
+
+    def run(label, args, world):
+        runs[label, world] = spawn_ranks("cli", cli[world], args, env=env,
+                                         tag=f"cli_{label}_{world}p")
+        for r, o in enumerate(runs[label, world]):
+            by_path[f"[dist] {world} process(es), rank {r}, {label}"] = o["counts"]
+
+    for world in cli:
+        run("default run", (), world)
+    want_labels = (cli[1][0] / config.TRAIN_FILE_LIST).read_text()
+    for d in cli[2]:
+        if (d / config.TRAIN_FILE_LIST).read_text() != want_labels:
+            fail(f"[dist] {d.name}'s train_files.txt differs from the single process's")
+    for r, o in enumerate(runs["default run", 2]):
+        c = o["counts"]
+        if c["K1"] < 1 or c["K5"] < 1 or c["K6"] != o["processed"]:
+            fail(f"[dist] CLI rank {r}: launches {c}, {o['processed']} files processed")
+        if not any("Running on 2 devices" in ln and "gloo" in ln for ln in o["lines"]):
+            fail(f"[dist] CLI rank {r} did not report the mesh")
+    # --eval of each run's own model.npz (the ranks' differ from the single
+    # process's by the DP corpus training's float noise, carried through the
+    # discovery loop): informational, with how many targets lie within that
+    # noise of a decision.  Then --eval of the single process's model.npz
+    # as two processes: the same metrics, the gate.
+    for world in cli:
+        run("--eval, own model", ("--eval",), world)
+    near, noise = eval_noise(cli, dev)
+    own1 = runs["--eval, own model", 1][0]["metrics"]
+    own2 = [o["metrics"] for o in runs["--eval, own model", 2]]
+    for d in cli[2]:
+        shutil.copy(cli[1][0] / config.MODEL_PATH, d / config.MODEL_PATH)
+    run("--eval, one model", ("--eval",), 2)
+    same = [o["metrics"] for o in runs["--eval, one model", 2]]
+    single, two = runs["default run", 1][0], runs["default run", 2]
+    print(f"[dist] CLI default run, one process {single['s']:.1f} s vs two over gloo "
+          f"{max(o['s'] for o in two):.1f} s: train_files.txt identical on both ranks; "
+          f"launches per rank {[o['counts'] for o in two]}; phases one process "
+          f"{single['phase_s']}, rank 0 {two[0]['phase_s']} | {card}")
+    print(f"[dist] CLI --eval: one process's model.npz as two processes: metrics "
+          f"{'equal' if all(m == own1 for m in same) else 'DIFFER'} ({own1}); each "
+          f"run's own model: accuracy {own1['accuracy']:.4f} (one process) vs "
+          f"{[m['accuracy'] for m in own2]} (two), the models' similarities differ by up "
+          f"to {noise:.2e} and {near} of the targets lie within that of a decision")
+    if any(m != own1 for m in same):
+        fail(f"[dist] --eval over two processes {same}, one process {own1}")
+    report["dist"]["cli"] = {f"{a}, {w} process(es)": [
+        {k: o[k] for k in ("s", "counts", "phase_s", "metrics", "processed")} for o in v]
+        for (a, w), v in runs.items()}
+    report["dist"]["eval_noise"] = {"similarity": noise, "targets_within": near}
+
+    # One rank over NCCL: the DP step.
+    nccl = root / "nccl"
+    nccl.mkdir()
+    shutil.copy(lib / "in.npz", nccl / "in.npz")
+    (o,) = spawn_ranks("nccl", [nccl])
+    by_path["[dist] 1 rank over NCCL, DP step"] = o["counts"]
+    if (o["backend"] != "nccl" or o["counts"]["K5"] != 1 or not o["vs_sums_bit_identical"]
+            or o["vs_step_max_abs"] > K5_STEP_TOL):
+        fail(f"[dist] NCCL: {o}")
+    print(f"[dist] 1 rank over NCCL: DP step bit-identical to K5's sums + _apply_step, "
+          f"{o['vs_step_max_abs']:.2e} from the step form (bound {K5_STEP_TOL:g}); per "
+          f"step K5 sums {o['k5_ms']:.3f} ms, all-reduce {o['all_reduce_ms']:.3f} ms "
+          f"| {card}")
+    report["dist"]["nccl"] = o
+    shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this check needs an NVIDIA GPU")
@@ -939,7 +1417,7 @@ def main() -> int:
     from streamz_tpu_torch.infer.cosine import cosine_matrix_many, identify_sims_cosine
     from streamz_tpu_torch.infer.embed import batch_clip_embeddings
     from streamz_tpu_torch.infer.identify import identify_speaker_list_batch
-    from streamz_tpu_torch.io import filelists, wav
+    from streamz_tpu_torch.io import filelists, native, wav
     from streamz_tpu_torch.io.audio import batch_resample
     from streamz_tpu_torch.nn import checkpoint, drivers, prng
     from streamz_tpu_torch.nn import train_kernels as tk
@@ -971,10 +1449,17 @@ def main() -> int:
     # 1. Build every kernel, one nvcc per source, all at once.
     mark("build")
     t0 = time.perf_counter()
-    _cuda_build.build_all(SOURCES)
+    # The native ingest layer (g++) builds beside the kernels (nvcc), so
+    # that no phase time below holds a build.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_build = pool.submit(native.load)
+        _cuda_build.build_all(SOURCES)
+    if native_build.result() is None:
+        fail(f"the native ingest layer did not build: {native.unavailable_reason}")
     build_s = time.perf_counter() - t0
-    print(f"[build] K1-K7 built in {build_s:.2f} s; shared memory per block: " + ", ".join(
-        f"{k} {mfcc_kernel.smem_bytes(src)} B" for k, src in mfcc_kernel.SOURCES.items()))
+    print(f"[build] K1-K7 and {native.so_path().name} built in {build_s:.2f} s; shared "
+          "memory per block: " + ", ".join(
+              f"{k} {mfcc_kernel.smem_bytes(src)} B" for k, src in mfcc_kernel.SOURCES.items()))
     for name, log in _cuda_build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1302,6 +1787,21 @@ def main() -> int:
 
         for n_ in plain_calls:
             setattr(tk, n_, counted(n_))
+        # The ingest must take the native layer, never the thread pool.
+        from streamz_tpu_torch.io import audio as audio_mod
+        ingest_calls = {"native": 0, "thread pool": 0}
+        ingest_fns = {"native": (native, "batch_ingest", native.batch_ingest),
+                      "thread pool": (audio_mod, "batch_resample_threads",
+                                      audio_mod.batch_resample_threads)}
+
+        def counted_ingest(which, fn):
+            def call(*a, **k):
+                ingest_calls[which] += 1
+                return fn(*a, **k)
+            return call
+
+        for which, (mod, attr, fn) in ingest_fns.items():
+            setattr(mod, attr, counted_ingest(which, fn))
         zero_counts()
         drivers._key_counter[0] = 0
         t0 = time.perf_counter()
@@ -1310,6 +1810,8 @@ def main() -> int:
         finally:
             for n_, fn in plain_fns.items():
                 setattr(tk, n_, fn)
+            for mod, attr, fn in ingest_fns.values():
+                setattr(mod, attr, fn)
         train_s = time.perf_counter() - t0
         launches = read_counts("default run")
         phases, margins = run["phase_seconds"], run["decision_margins"]
@@ -1331,6 +1833,9 @@ def main() -> int:
               f"{plain_calls['rows_plain']} (must be 0)")
         if any(plain_calls.values()):
             fail(f"the default run ran plain corpus ops on the card: {plain_calls}")
+        print(f"[train] ingest calls: {ingest_calls} (the thread pool must not run)")
+        if ingest_calls["native"] < 1 or ingest_calls["thread pool"]:
+            fail(f"the default run's ingest did not take the native layer: {ingest_calls}")
         net = checkpoint.load(config.MODEL_PATH, device=dev)
         relabelled = filelists.load_train_files(config.TRAIN_FILE_LIST)
         targets = filelists.load_target_files(config.TARGET_FILE_LIST)
@@ -1567,6 +2072,11 @@ def main() -> int:
             fail(f"streaming and serving launched a kernel: {serve_counts}")
         print(f"[serve] streaming and serving phases {time.perf_counter() - serve_t0:.1f} s; "
               f"kernel launches {serve_counts} (none on this path)")
+
+        mark("native")
+        native_phase(work, names, query_pcm, card, report)
+        mark("dist")
+        dist_phase(work, train_pcm, spk, query_pcm, pool, pool_y, dev, card, report, by_path)
 
         mark("K7 check")
         # K7 on the identify batch, every window of the 64 held-out clips,
@@ -2447,4 +2957,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--dist-worker":
+        sys.exit(dist_worker(sys.argv[2:]))
     sys.exit(main())

@@ -1,31 +1,37 @@
 """Whole-corpus batched training of the labelled files (the initial training
-of the default run), on one device.
+of the default run), on one device or data-parallel over a mesh.
 
-The port of ``streamz_tpu/app/corpus.py`` and the single-device case of
-``streamz_tpu/parallel/data_parallel.py``: one shuffled window pool,
-batches of 4096, each step one launch of K5's step form on CUDA
-(``corpus_step_k5``), which gathers the step's rows from the pool on the
-card and applies ``p -= lr / max(count, 1) * grad`` in place.  The pool and
-its labels go to the device once; per epoch only the permutation (int32)
-and the dropout keep mask (one byte per feature) go up, from pinned
-buffers without blocking.  Shuffles and dropout masks come from
-``np.random.default_rng(seed)`` in the JAX package's order, so both
-packages train on the same batches.  The per-step losses stay on the
-device; the host reads them once, at the end.  On the CPU the same route
-runs in plain torch (``train_kernels.rows_plain``).
+The port of ``streamz_tpu/app/corpus.py``: one shuffled window pool,
+batches of 4096.  On one device (``mesh=None``) each step is one launch of
+K5's step form on CUDA (``corpus_step_k5``), which gathers the step's rows
+from the pool on the card and applies ``p -= lr / max(count, 1) * grad``
+in place.  Over a mesh (:mod:`streamz_tpu_torch.parallel.data_parallel`)
+the batch rounds up to a mesh multiple and each rank runs K5's sums form
+on its slice of every step, then one all-reduce and the update with the
+global count.  The pool and its labels go to each rank's device once; per
+epoch only the permutation (int32) and the dropout keep mask (one byte per
+feature) go up, from pinned buffers without blocking.  Shuffles and
+dropout masks come from ``np.random.default_rng(seed)`` in the JAX
+package's order, drawn for the unpadded pool only, so both packages and
+every rank count train on the same batches.  The per-step losses stay on
+the device; the host reads them once, at the end.  On the CPU the same
+routes run in plain torch (``train_kernels.rows_plain``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from streamz_tpu_torch import config
 from streamz_tpu_torch.device import staged
 from streamz_tpu_torch.nn.model import SpeakerNet
 from streamz_tpu_torch.nn.train_kernels import PoolRows, corpus_step_k5
+from streamz_tpu_torch.parallel import comm
+from streamz_tpu_torch.parallel.data_parallel import dp_step
 
 
 def build_window_pool(
@@ -56,12 +62,20 @@ def train_corpus(
     batch_size: int = 4096,
     lr: float = 0.01,
     dropout: float = 0.0,
+    mesh: Optional[DeviceMesh] = None,
     seed: int = 0,
 ) -> List[float]:
     """Large-batch SGD over the whole pool; returns the per-epoch mean
     losses.  ``dropout`` zeroes features with probability p without
     rescaling and skips windows that become all zero (src/lib.rs:119-129,
-    :607-609); the masks are drawn for the unpadded pool only."""
+    :607-609); the masks are drawn for the unpadded pool only.
+
+    With ``mesh``, ``batch_size`` is the GLOBAL batch, rounded up to a mesh
+    multiple, and every rank (each holding the same ``windows``) trains its
+    slice of each step; the parameters then match a single-device run up to
+    the all-reduce's float reduction order."""
+    if mesh is not None and batch_size % mesh.size():
+        batch_size += mesh.size() - batch_size % mesh.size()
     n = len(windows)
     if n == 0:
         return []
@@ -85,10 +99,16 @@ def train_corpus(
             keep.copy_(staged(drawn.view(np.uint8), dev), non_blocking=True)
         step_losses = []
         for s in range(steps):
-            lo, real = s * batch_size, min(batch_size, n - s * batch_size)
-            rows = PoolRows(pool_x, pool_y, order[lo:lo + batch_size],
+            if mesh is None:
+                lo, width = s * batch_size, batch_size
+            else:  # this rank's slice of the step, as P(None, DATA_AXIS)
+                width = batch_size // mesh.size()
+                lo = s * batch_size + comm.axis_index(mesh) * width
+            real = min(width, max(n - lo, 0))
+            rows = PoolRows(pool_x, pool_y, order[lo:lo + width],
                             None if keep is None else keep[lo:lo + real], real)
-            step_losses.append(corpus_step_k5(params, rows, ns, lr))
+            step_losses.append(corpus_step_k5(params, rows, ns, lr) if mesh is None
+                               else dp_step(params, rows, ns, lr, mesh))
         epoch_losses.append(torch.stack(step_losses).mean())
     net.params = params
     return [float(v) for v in torch.stack(epoch_losses).tolist()] if epoch_losses else []

@@ -28,8 +28,11 @@ of one ``lax.scan`` dispatch to bound the compiled variants and the
 padding; here nothing is compiled per shape and each file is its own K6
 launch, queued without waiting, so there is no dispatch to cap.
 ``_resolve_scan_backend`` (``:330``) measures the single-device scan
-against the SPMD one that shards a file's windows over a mesh; one device
-has no SPMD scan to choose.
+against the SPMD one that shards a file's windows over a mesh.  The SPMD
+scan is not ported yet: under a mesh this loop runs replicated on every
+rank, each rank computing the same labels (the JAX package's
+``STREAMZ_SHARD_DISCOVERY=0`` route, ``:87-103``), and asking for the
+sharded scan raises (``app/incremental.run_incremental``).
 
 With the ingest stage's ``DeviceFeatureStore`` each file's windows are
 gathered on the device from the frontend's own output; a file the store

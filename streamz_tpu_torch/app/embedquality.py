@@ -19,14 +19,15 @@ def _report(items) -> None:
     print(f"Average mean similarity: {total / len(items):.4f}")
 
 
-def print_embedding_quality(net: SpeakerNet, extractor=None) -> None:
+def print_embedding_quality(net: SpeakerNet, extractor=None, mesh=None) -> None:
     """The stored embeddings' similarity stats, or, where ``model.npz``
-    has none, those recomputed from the speakers' files."""
+    has none, those recomputed from the speakers' files (their embedding
+    batches sharded over ``mesh`` when given)."""
     if net.embeddings:
         print("Saved embeddings found in model.npz:")
         _report(net.embeddings)
         return
-    embeds = compute_speaker_embeddings(net, extractor)
+    embeds = compute_speaker_embeddings(net, extractor, mesh=mesh)
     if not embeds:
         print("No embeddings available to evaluate")
         return

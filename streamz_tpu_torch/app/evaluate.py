@@ -14,7 +14,8 @@ the *labeled* training entries (the tail of the list, deterministic) is used
 as the evaluation set — this flag is documented in the reference README
 (README.md:72) but dead in its code; implemented for real here.
 
-The port of ``streamz_tpu/app/evaluate.py`` on one device.
+The port of ``streamz_tpu/app/evaluate.py``; with a ``mesh`` the clip
+embeddings shard their clip axis over the ranks (``:36-70``).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ def evaluate(
     *,
     verbose: bool = True,
     store=None,
+    mesh=None,
 ) -> Dict[str, float]:
     """Run the evaluation loop; returns the metrics dict.
 
@@ -67,7 +69,7 @@ def evaluate(
     present = [(p, c) for p, c in target_files if feature_map.get(p) is not None]
     embeddings = batch_clip_embeddings(
         net, [feature_map[p] for p, _ in present],
-        store=store, keys=[p for p, _ in present],
+        store=store, keys=[p for p, _ in present], mesh=mesh,
     )
     emb_by_path = {p: e for (p, _), e in zip(present, embeddings)}
     if centroid_list and present:

@@ -20,6 +20,7 @@ instead of spawning a class.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +39,10 @@ from streamz_tpu_torch.infer.embed import (
 )
 from streamz_tpu_torch.nn import checkpoint, drivers
 from streamz_tpu_torch.nn.model import SpeakerNet
+from streamz_tpu_torch.parallel.window_parallel import (
+    LONG_CLIP_WINDOW_THRESHOLD,
+    extract_embedding_sharded,
+)
 from streamz_tpu_torch.runtime.progress import progress
 
 
@@ -64,10 +69,20 @@ def run_incremental(
     max_speakers: Optional[int] = None,
     show_progress: bool = True,
     device_store: Optional[DeviceFeatureStore] = None,
+    mesh=None,
 ) -> IncrementalResult:
     """Mutates ``net`` and the labels inside ``train_files``; returns stats.
     On CUDA each file trains in one K6 launch; with ``device_store`` its
-    windows are gathered on the device."""
+    windows are gathered on the device.  Under a ``mesh`` of two or more
+    ranks the loop runs replicated on every rank; ``STREAMZ_SHARD_DISCOVERY``
+    set to anything but ``"0"`` asks for the JAX package's sharded scan,
+    which is not ported, and raises."""
+    shard = os.environ.get("STREAMZ_SHARD_DISCOVERY")
+    if mesh is not None and mesh.size() > 1 and shard not in (None, "0"):
+        raise NotImplementedError(
+            f"STREAMZ_SHARD_DISCOVERY={shard!r} asks for the sharded discovery "
+            "scan, which streamz_tpu_torch does not port yet; unset it (or set "
+            "it to 0) to run the discovery loop replicated on every rank")
     total_loss, processed, sf, se, margins = run_incremental_device(
         net, train_files, feature_map,
         burn_in_limit=burn_in_limit, conf_threshold=conf_threshold,
@@ -92,10 +107,14 @@ def run_incremental_host(
     epochs: int = config.INCREMENTAL_EPOCHS,
     max_speakers: Optional[int] = None,
     show_progress: bool = True,
+    mesh=None,
 ) -> IncrementalResult:
     """The host-stepped formulation of the same loop, one host decision per
     file: the oracle the device loop is held to.  Every file trains through
-    ``drivers.pretrain_from_features`` with a fresh key (K6 on CUDA)."""
+    ``drivers.pretrain_from_features`` with a fresh key (K6 on CUDA).  With
+    ``mesh`` a clip of at least ``LONG_CLIP_WINDOW_THRESHOLD`` windows takes
+    its embedding sharded over the ranks
+    (``streamz_tpu/app/incremental.py:177-182``)."""
     # Seed the centroids from the model's stored embeddings
     # (src/main.rs:715-734).
     speaker_embeddings: Dict[int, np.ndarray] = {
@@ -114,7 +133,11 @@ def run_incremental_host(
         if len(windows) < 5:
             print(f"Skipping {path}, too short")
             continue
-        emb = normalize(extract_embedding_from_features(net, windows))
+        if mesh is not None and len(windows) >= LONG_CLIP_WINDOW_THRESHOLD:
+            # Already L2-normalized (its call-site contract).
+            emb = extract_embedding_sharded(net, windows, mesh)
+        else:
+            emb = normalize(extract_embedding_from_features(net, windows))
 
         burn_phase = count < burn_in_limit
         threshold = 0.5 if burn_phase else conf_threshold
@@ -167,11 +190,13 @@ def finalize_and_save(
     model_path: str = config.MODEL_PATH,
     feature_map=None,
     store: Optional[DeviceFeatureStore] = None,
+    mesh=None,
 ) -> None:
     """Recompute the stored embeddings (the run's in-memory windows where
-    the feature cache has none, gathered on the device from ``store``),
-    save the model, print the summary."""
-    new_embeddings = compute_speaker_embeddings(net, feature_map=feature_map, store=store)
+    the feature cache has none, gathered on the device from ``store``, or
+    pooled over ``mesh``), save the model, print the summary."""
+    new_embeddings = compute_speaker_embeddings(net, feature_map=feature_map, store=store,
+                                                mesh=mesh)
     for i, (embed_v, mean, std) in enumerate(new_embeddings):
         norm = float(np.linalg.norm(embed_v))
         print(

@@ -1,7 +1,12 @@
 """Multi-stream batched serving: N concurrent live streams in one dispatch.
 
-The port of ``streamz_tpu/app/serve.py`` on one device (its mesh argument
-and multi-host guard are not ported).  A single hop-400 stream keeps the
+The port of ``streamz_tpu/app/serve.py`` on one device.  Its multi-host
+guard is ported: in a multi-process run (a process group of two or more
+ranks) the identifier refuses, as the JAX package does on more than one
+host, and serving runs one server per process behind
+:mod:`streamz_tpu_torch.app.fleet`.  Its ``mesh`` argument, slot-sharding
+one process's identifier over several cards, is not ported yet.  A single
+hop-400 stream keeps the
 card a fraction of a percent busy, so serving batches many independent
 streams into every dispatch: the streaming step of
 :mod:`streamz_tpu_torch.app.stream` over a leading slot axis, one dispatch
@@ -34,6 +39,7 @@ from streamz_tpu_torch.app.stream import (
 )
 from streamz_tpu_torch.dsp.mfcc import _to_f32
 from streamz_tpu_torch.io import g711
+from streamz_tpu_torch.parallel import comm
 
 _BLOCK = config.HOP_SIZE
 
@@ -86,6 +92,15 @@ class MultiStreamIdentifier:
     ):
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
+        if comm.world_size() > 1:
+            # Feeds and verdicts are host-local: multi-process serving is
+            # one server per process (streamz_tpu/app/serve.py:140-150).
+            raise NotImplementedError(
+                "MultiStreamIdentifier is single-process: run one server "
+                "per host via streamz_tpu_torch.app.fleet (one "
+                "`python -m streamz_tpu_torch.app.fleet --checkpoint m.npz` per "
+                "host + FleetClient round-robin in front)"
+            )
         self.net = net
         self.threshold = float(threshold)
         self.k = int(block_batch)

@@ -7,6 +7,8 @@
                               [--force] [--retrain] [--no-autotune]
                               [--profile [dir]] [--device cuda|cpu]
                               [--encode <file>] [--checksum <hex>]
+                              [--coordinator <host:port>] [--num-processes <n>]
+                              [--process-id <i>]
   python -m streamz_tpu_torch --decode <out> [--checksum <hex>]
   python -m streamz_tpu_torch --identify <file>... [--threshold <v>]
                               [--no-autotune] [--device cuda|cpu]
@@ -61,8 +63,22 @@ at first use and cached per card; ``--no-autotune`` skips the probe, so a
 cold cache takes K1.  The frontend's outputs stay on the card in a
 ``DeviceFeatureStore`` for the discovery loop, ``--eval``, ``--identify``
 and finalize; ``STREAMZ_STORE_MAX_MB`` caps it (default 4096, 0 or less
-turns it off).  The JAX package's multi-host flags are not yet ported:
-they print so and return 2.
+turns it off).
+
+A multi-process run passes ``--coordinator <host:port> --num-processes <n>
+--process-id <i>`` to each of its ``n`` processes (all three or none: a
+partial set raises ``ValueError``), or runs under ``torchrun`` with
+``STREAMZ_DIST_AUTO=1`` and no flags.  Each process is one rank of a
+``torch.distributed`` group on one device (``cuda:<local rank % cards>``;
+NCCL when each rank has a card of its own, gloo when ranks share one or
+under ``--device cpu``), and the batched stages run data-parallel over a
+mesh of every rank (``streamz_tpu/cli.py:211-239``): ingest's frontend and
+the embedding batches shard their clip axis, corpus training shards every
+step and all-reduces the gradient sums, long clips shard their window
+axis.  Under a mesh the frontend takes its static default (no probe), the
+device store is off, and the discovery loop runs replicated on every rank.
+Every rank reads the same files and writes its own working directory's
+``model.npz`` and lists, with the same labels as a single-process run.
 """
 
 from __future__ import annotations
@@ -91,6 +107,8 @@ from streamz_tpu_torch.io import audio
 from streamz_tpu_torch.io import filelists as fl
 from streamz_tpu_torch.nn import checkpoint
 from streamz_tpu_torch.nn.model import SpeakerNet
+from streamz_tpu_torch.parallel import comm
+from streamz_tpu_torch.parallel import mesh as meshmod
 from streamz_tpu_torch.runtime.profiler import PhaseTimer, trace
 from streamz_tpu_torch.runtime.watchdog import watchdog
 from streamz_tpu_torch.stego import codec
@@ -98,7 +116,8 @@ from streamz_tpu_torch.stego import codec
 _VALUE_FLAGS = ("--threshold", "--device", "--burn-in-limit", "--max-speakers",
                 "--eval-split", "--cluster-embeddings", "--encode", "--decode",
                 "--checksum", "--serve-streams", "--serve-max-buffer",
-                "--serve-idle-timeout")
+                "--serve-idle-timeout", "--coordinator", "--num-processes",
+                "--process-id")
 _SWITCHES = ("--identify", "--force", "--retrain", "--no-cache-wav", "--no-autotune",
              "--eval", "--check-embeddings", "--profile", "--serve")
 
@@ -149,15 +168,17 @@ def _unported(args: List[str]) -> List[str]:
 
 def build_feature_map(
     paths: List[str], extractor: FeatureExtractor, timer: PhaseTimer,
-    store_paths: Optional[Set[str]] = None,
+    store_paths: Optional[Set[str]] = None, mesh=None,
 ):
     """Decode and resample ``paths`` on the host (the ``ingest`` phase),
-    then one batched frontend call per length bucket (``features``).
+    then one batched frontend call per length bucket (``features``), its
+    clip axis sharded over ``mesh`` when given.
 
     Returns ``(feature_map, store)``, ``store`` a path-keyed
     :class:`DeviceFeatureStore` of the frontend's device outputs for the
     consumers on the device, or None where there is none: the ``'numpy'``
-    backend, or ``STREAMZ_STORE_MAX_MB`` (default 4096) at 0 or less.
+    backend, a mesh, or ``STREAMZ_STORE_MAX_MB`` (default 4096) at 0 or
+    less.
     ``store_paths`` keeps only those clips in the store (``--eval`` pins
     only its targets, the only rows it gathers); the rest are extracted in
     a separate call, so that no bucket of theirs stays resident.
@@ -169,7 +190,7 @@ def build_feature_map(
     except ValueError:
         cap_mb = 4096.0
     store = (DeviceFeatureStore(max_bytes=int(cap_mb * 1e6))
-             if extractor.backend != "numpy" and cap_mb > 0 else None)
+             if extractor.backend != "numpy" and cap_mb > 0 and mesh is None else None)
     with timer.phase("features"):
         if store is not None and store_paths is not None:
             kept = [i for i, (p, _) in enumerate(resampled) if p in store_paths]
@@ -182,7 +203,8 @@ def build_feature_map(
                         feats[i] = f
             rekey_map = {row: resampled[i][0] for row, i in enumerate(kept)}
         else:
-            feats = extractor.extract_batch([s for _, s in resampled], store=store)
+            feats = extractor.extract_batch([s for _, s in resampled], mesh=mesh,
+                                            store=store)
             rekey_map = {i: p for i, (p, _) in enumerate(resampled)}
     if store is not None:
         store.rekey(rekey_map)
@@ -223,6 +245,33 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
         print(f"{' '.join(unported)}: not yet ported to streamz_tpu_torch",
               file=sys.stderr)
         return 2
+    device = _flag_value(args, "--device") or "cuda"
+    # The multi-process bootstrap precedes any device access: each process
+    # passes the same coordinator and its own id (or none of the three).
+    try:
+        rank_device = comm.initialize_distributed(
+            _flag_value(args, "--coordinator"),
+            _parse_int(args, "--num-processes"),
+            _parse_int(args, "--process-id"),
+            device=device,
+        )
+    except RuntimeError as e:  # no CUDA, or an unknown device
+        print(f"Cannot start on device {device!r}: {e}", file=sys.stderr)
+        return 1
+    try:
+        return _main(args, identify_paths, rank_device or device, report)
+    finally:
+        if rank_device is not None:
+            meshmod.reset_active_mesh()
+            comm.shutdown()
+
+
+def _main(args: List[str], identify_paths: List[str], device, report: Optional[dict]) -> int:
+    """:func:`main` after the process group is up (or needs none)."""
+    mesh = meshmod.auto_mesh()
+    if mesh is not None:
+        print(f"Running on {mesh.size()} devices (data-parallel mesh across "
+              f"{comm.world_size()} hosts, {comm.backend()})")
 
     threshold = _parse_float(args, "--threshold", config.DEFAULT_CONF_THRESHOLD)
     eval_split = _parse_float(args, "--eval-split", 0.2)
@@ -232,7 +281,6 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
     encode_path = _flag_value(args, "--encode")
     decode_path = _flag_value(args, "--decode")
     checksum_arg = _flag_value(args, "--checksum")
-    device = _flag_value(args, "--device") or "cuda"
     config.set_wav_cache_enabled("--no-cache-wav" not in args)
     if "--no-autotune" in args:
         # Skip the frontend's first-use probe: cached decisions still apply,
@@ -266,7 +314,7 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
             print(f"Failed to load model from {config.MODEL_PATH}: {e}", file=sys.stderr)
             return 1
         print(f"Loaded {config.MODEL_PATH} for embedding check")
-        print_embedding_quality(net, extractor)
+        print_embedding_quality(net, extractor, mesh=mesh)
         return 0
 
     if cluster_k is not None:
@@ -294,7 +342,7 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
         return _standalone_decode(decode_path, dev)
 
     if identify_paths:
-        return _identify_mode(identify_paths, threshold, extractor, timer)
+        return _identify_mode(identify_paths, threshold, extractor, timer, mesh)
 
     if "--serve" in args:
         return _serve_mode(args, threshold, dev)
@@ -315,18 +363,18 @@ def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int
     with trace(profile_dir, dev):
         if eval_mode:
             return _eval_mode(train_files, target_files, eval_split, threshold,
-                              extractor, timer, report, profile=profile)
+                              extractor, timer, report, profile=profile, mesh=mesh)
         return _train_mode(
             train_files, original_paths, extractor, threshold, timer,
             burn_in_limit=burn_in_limit, max_speakers=max_speakers,
             force_retrain="--force" in args or "--retrain" in args,
-            encode_path=encode_path, report=report, profile=profile,
+            encode_path=encode_path, report=report, profile=profile, mesh=mesh,
         )
 
 
 def _eval_mode(train_files, target_files, eval_split: float, threshold: float,
                extractor: FeatureExtractor, timer: PhaseTimer, report: dict, *,
-               profile: bool) -> int:
+               profile: bool, mesh=None) -> int:
     """``--eval`` (``src/main.rs:522-625``): features of the training and
     target clips, only the targets kept on the card, then the metrics of
     ``model.npz`` on the targets."""
@@ -335,7 +383,7 @@ def _eval_mode(train_files, target_files, eval_split: float, threshold: float,
     targets = resolve_eval_targets(train_files, target_files, eval_split)
     feature_map, store = build_feature_map(
         [p for p, _ in train_files] + [p for p, _ in target_files], extractor, timer,
-        store_paths={p for p, _ in targets})
+        store_paths={p for p, _ in targets}, mesh=mesh)
     report["store_stats"] = None if store is None else store.stats
     for p, _ in train_files:
         if p not in feature_map:
@@ -361,7 +409,7 @@ def _eval_mode(train_files, target_files, eval_split: float, threshold: float,
         print(f"Model contains {len(net.embeddings)} saved embeddings")
         with timer.phase("eval"):
             report["metrics"] = evaluate(net, feature_map, norm_targets, threshold,
-                                         store=store)
+                                         store=store, mesh=mesh)
     finally:
         if store is not None:
             store.release()
@@ -373,22 +421,27 @@ def _eval_mode(train_files, target_files, eval_split: float, threshold: float,
 def _train_mode(train_files, original_paths: List[str], extractor: FeatureExtractor,
                 conf_threshold: float, timer: PhaseTimer, *, burn_in_limit: Optional[int],
                 max_speakers: Optional[int], force_retrain: bool,
-                encode_path: Optional[str], report: dict, profile: bool) -> int:
+                encode_path: Optional[str], report: dict, profile: bool,
+                mesh=None) -> int:
     """The default run (``streamz_tpu/cli.py:335-554``): ingest, the
     frontend (the 'auto' choice of K1 or K2) with its outputs kept on the
     card, corpus training of the labelled files (K5), the steganography
     encode when triggered, the discovery loop (K6) fed from the card, then
     centroids, ``model.npz`` and the lists."""
-    feature_map, store = build_feature_map([p for p, _ in train_files], extractor, timer)
+    feature_map, store = build_feature_map([p for p, _ in train_files], extractor, timer,
+                                           mesh=mesh)
     report["store_stats"] = None if store is None else store.stats
     try:
         net, result = _train(train_files, feature_map, store, extractor, conf_threshold,
                              timer, burn_in_limit=burn_in_limit,
                              max_speakers=max_speakers, force_retrain=force_retrain,
-                             encode_path=encode_path)
+                             encode_path=encode_path, mesh=mesh)
         report["decision_margins"] = result.decision_margins
         with timer.phase("finalize"):
-            finalize_and_save(net, result, feature_map=feature_map, store=store)
+            # Every rank writes its own working directory's files, with the
+            # same labels (streamz_tpu/cli.py:535-541).
+            finalize_and_save(net, result, feature_map=feature_map, store=store,
+                              mesh=mesh)
             updated = list(zip(original_paths, (c for _, c in train_files)))
             fl.write_train_files(config.TRAIN_FILE_LIST, updated)
             fl.write_target_files(config.TARGET_FILE_LIST, train_files)
@@ -413,7 +466,7 @@ def _train_mode(train_files, original_paths: List[str], extractor: FeatureExtrac
 
 
 def _train(train_files, feature_map, store, extractor, conf_threshold, timer, *,
-           burn_in_limit, max_speakers, force_retrain, encode_path):
+           burn_in_limit, max_speakers, force_retrain, encode_path, mesh=None):
     """Load or train the net on the corpus, hide ``encode_path`` in it when
     the checksum trigger fired, then the discovery loop over every file;
     returns (net, the loop's result)."""
@@ -436,7 +489,7 @@ def _train(train_files, feature_map, store, extractor, conf_threshold, timer, *,
             net = checkpoint.load(config.MODEL_PATH, device=dev)
             print(f"Loaded saved model from {config.MODEL_PATH}")
             net.set_embeddings(compute_speaker_embeddings(
-                net, extractor, feature_map=feature_map, store=store))
+                net, extractor, feature_map=feature_map, store=store, mesh=mesh))
         except Exception as e:
             print(f"Failed to load model: {e}", file=sys.stderr)
             net = SpeakerNet.new(output=max(num_speakers, 1), device=dev)
@@ -456,7 +509,7 @@ def _train(train_files, feature_map, store, extractor, conf_threshold, timer, *,
                 pool_x, pool_y = corpus.build_window_pool(feature_map, train_refs)
                 losses = corpus.train_corpus(
                     net, pool_x, pool_y, epochs=config.TRAIN_EPOCHS, lr=0.01,
-                    dropout=config.DEFAULT_DROPOUT, seed=0,
+                    dropout=config.DEFAULT_DROPOUT, mesh=mesh, seed=0,
                 )
             for p, c in train_refs:
                 net.record_training_file(c, p)
@@ -477,13 +530,13 @@ def _train(train_files, feature_map, store, extractor, conf_threshold, timer, *,
         result = run_incremental(
             net, train_files, feature_map, burn_in_limit=burn_in_limit_val,
             conf_threshold=conf_threshold, max_speakers=max_speakers_val,
-            device_store=store,
+            device_store=store, mesh=mesh,
         )
     return net, result
 
 
 def _identify_mode(paths: List[str], threshold: float, extractor: FeatureExtractor,
-                   timer: PhaseTimer) -> int:
+                   timer: PhaseTimer, mesh=None) -> int:
     """One-shot identification of ``paths`` against the saved model: host
     decode/resample, the frontend (the 'auto' winner on CUDA) with its
     outputs kept on the card, mean-pooled ReLU-h2 embeddings gathered
@@ -496,7 +549,7 @@ def _identify_mode(paths: List[str], threshold: float, extractor: FeatureExtract
     if not net.embeddings:
         # Older checkpoints may lack stored embeddings: rebuild them from
         # the per-speaker training file lists.
-        net.set_embeddings(compute_speaker_embeddings(net, extractor))
+        net.set_embeddings(compute_speaker_embeddings(net, extractor, mesh=mesh))
     if not net.embeddings:
         print("Model has no speaker embeddings to match against", file=sys.stderr)
         return 1
@@ -505,11 +558,11 @@ def _identify_mode(paths: List[str], threshold: float, extractor: FeatureExtract
         f"({net.output_size()} speakers, {len(net.embeddings)} embeddings)"
     )
 
-    feature_map, store = build_feature_map(paths, extractor, timer)
+    feature_map, store = build_feature_map(paths, extractor, timer, mesh=mesh)
     present = [p for p in paths if p in feature_map]
     try:
         embeddings = batch_clip_embeddings(net, [feature_map[p] for p in present],
-                                           store=store, keys=present)
+                                           store=store, keys=present, mesh=mesh)
     finally:
         if store is not None:
             store.release()

@@ -166,19 +166,28 @@ class FeatureExtractor:
                                             _core_for(self.resolved()))
 
     def extract_batch(
-        self, clips: Sequence[np.ndarray],
+        self, clips: Sequence[np.ndarray], mesh=None,
         store: Optional[mfcc.DeviceFeatureStore] = None,
     ) -> List[np.ndarray]:
         """Batched extraction: one frontend call per padded-length bucket.
-        With ``store`` the device outputs are also kept there for the
-        consumers on the device; the ``'numpy'`` backend takes none."""
+        With ``mesh`` every rank runs the frontend on its share of each
+        bucket's clips (the ``'numpy'`` golden spec stays on the host); a
+        very long clip takes the PCM-halo route through the same kernel
+        under ``'auto'`` or ``'plain'``, while a kernel backend asked for by
+        name keeps the bucket path for every clip
+        (``streamz_tpu/dsp/features.py:156-177``).  With ``store`` the
+        device outputs are also kept there for the consumers on the device;
+        the ``'numpy'`` backend takes none."""
         if self.backend == "numpy":
             if store is not None:
                 raise ValueError("the 'numpy' backend computes on the host "
                                  "and fills no device store")
             return [mfcc_ref.extract_features_np(c) for c in clips]
+        resolved = self.resolved()
         return mfcc.extract_features_batch(
-            clips, core=_core_for(self.resolved()), device=self.device, store=store
+            clips, core=_core_for(resolved), device=self.device, store=store,
+            mesh=mesh,
+            allow_pcm_sharded=self.backend == "auto" or resolved == "plain",
         )
 
 

@@ -132,6 +132,9 @@ def mfcc_features(pcm: torch.Tensor, n_samples: torch.Tensor) -> torch.Tensor:
     return deltas_and_norm(mfcc_base(pcm), window_count(n_samples))
 
 
+mfcc_features.base = mfcc_base  # every core names its base (the PCM-halo route)
+
+
 # ---------------------------------------------------------------------------
 # Host-side ragged-batch wrapper with length bucketing.
 # ---------------------------------------------------------------------------
@@ -175,7 +178,10 @@ class DeviceFeatureStore:
     """The frontend's outputs kept on the device, indexed for reuse there.
 
     The port of ``streamz_tpu/dsp/mfcc.py:DeviceFeatureStore`` on one
-    device (its mesh arguments are not ported).  :func:`extract_features_batch`
+    device.  Its mesh arguments, for one process driving several cards, are
+    not ported yet; a multi-process run (one rank per device) turns the
+    store off, as the JAX package does on more than one host
+    (``streamz_tpu/cli.py:129-135``).  :func:`extract_features_batch`
     computes the features on the device and returns host copies; handed a
     store it also keeps each bucket's ``[B, W, 60]`` output alive and
     records where each clip's rows lie, so that the discovery loop,
@@ -291,7 +297,8 @@ class DeviceFeatureStore:
 
 def extract_features_batch(
     clips: Sequence[np.ndarray], core: Optional[Core] = None, device=None,
-    store: Optional[DeviceFeatureStore] = None,
+    store: Optional[DeviceFeatureStore] = None, mesh=None,
+    allow_pcm_sharded: Optional[bool] = None,
 ) -> List[np.ndarray]:
     """Many ragged clips → list of [n_windows_i, 60] arrays.
 
@@ -301,16 +308,37 @@ def extract_features_batch(
     :class:`streamz_tpu_torch.dsp.features.FeatureExtractor` passes K1's).
     With ``store`` each bucket's device output is also registered there,
     under the clip's position in ``clips``.
+
+    With ``mesh`` (a 1-D mesh over the process group; ``device`` is then
+    this rank's), each bucket's clip axis is zero-padded to the mesh, every
+    rank runs the frontend on its slice of the clips, and the features come
+    back to every rank through an all-gather: the frontend is per clip, so
+    the result does not depend on the rank count.  Clips of at least
+    ``LONG_CLIP_WINDOW_THRESHOLD`` windows take the PCM-halo window-sharded
+    frontend instead (:mod:`streamz_tpu_torch.parallel.window_parallel`),
+    through the same core's base, when ``allow_pcm_sharded`` (default: the
+    plain core only, as the JAX package's rule is).  A mesh takes no store.
     """
     if not clips:
         return []
+    if mesh is not None and store is not None:
+        raise ValueError("the device feature store is off under a mesh")
     dev = resolve_device(device)
+    if allow_pcm_sharded is None:
+        allow_pcm_sharded = core is None or core is mfcc_features
     core = core or mfcc_features
     f32 = [_to_f32(c) for c in clips]
     out: List[np.ndarray] = [None] * len(clips)  # type: ignore[list-item]
 
+    shard_long = allow_pcm_sharded and mesh is not None and mesh.size() > 1
     buckets: dict[int, list[int]] = {}
     for i, c in enumerate(f32):
+        if shard_long:
+            from streamz_tpu_torch.parallel import window_parallel as wp
+
+            if window_count_host(len(c)) >= wp.LONG_CLIP_WINDOW_THRESHOLD:
+                out[i] = wp.mfcc_features_pcm_sharded(c, mesh, base=core.base)
+                continue
         buckets.setdefault(_bucket_len(len(c)), []).append(i)
     for tlen, idxs in buckets.items():
         batch = np.zeros((len(idxs), tlen), np.float32)
@@ -318,14 +346,22 @@ def extract_features_batch(
         for row, i in enumerate(idxs):
             batch[row, : len(f32[i])] = f32[i]
             lens[row] = len(f32[i])
-        with torch.inference_mode():
-            feats_dev = core(
-                torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev)
-            )
         n_wins = [window_count_host(int(n)) for n in lens]
-        if store is not None:
-            store.add_bucket(feats_dev, idxs, n_wins)
-        feats = feats_dev.cpu().numpy()
+        with torch.inference_mode():
+            if mesh is not None:
+                from streamz_tpu_torch.parallel.mesh import (
+                    fetch, pad_rows_to_mesh, put_batch_sharded,
+                )
+
+                _, (batch_p, lens_p) = pad_rows_to_mesh(mesh, batch, lens)
+                feats = fetch(core(*put_batch_sharded(mesh, batch_p, lens_p)), mesh)
+            else:
+                feats_dev = core(
+                    torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev)
+                )
+                if store is not None:
+                    store.add_bucket(feats_dev, idxs, n_wins)
+                feats = feats_dev.cpu().numpy()
         for row, i in enumerate(idxs):
             out[i] = feats[row, : n_wins[row]].copy()
     return out

@@ -394,6 +394,7 @@ def _features(base: Callable[[torch.Tensor], torch.Tensor]):
     def core(pcm: torch.Tensor, n_samples: torch.Tensor) -> torch.Tensor:
         return mfcc.deltas_and_norm(base(pcm), mfcc.window_count(n_samples))
 
+    core.base = base
     core.__name__ = core.__qualname__ = base.__name__.replace("_base", "_features")
     core.__doc__ = (f"Full frontend through ``{base.__name__}``: [B, T] + [B] "
                     "lengths → [B, W, 60].")

@@ -139,7 +139,7 @@ def identify_speaker_cosine_feats(net: SpeakerNet, speaker_embeds: Sequence[Spea
 
 
 def compute_speaker_embeddings(
-    net: SpeakerNet, extractor=None, feature_map=None, store=None
+    net: SpeakerNet, extractor=None, feature_map=None, store=None, mesh=None
 ) -> List[SpeakerStats]:
     """Per-speaker (mean, mean_sim, std_sim) from the feature cache
     (src/lib.rs:1555-1599): each listed file's windows are loaded from
@@ -151,7 +151,8 @@ def compute_speaker_embeddings(
     path-keyed ``DeviceFeatureStore``) those map-sourced clips are gathered
     on the device; a clip read from the cache carries a key that misses.
     One stats entry per live class; a class without files gets a zero
-    centroid."""
+    centroid.  With ``mesh`` the pooled embedding batches shard their clip
+    axis over the ranks (``streamz_tpu/infer/cosine.py:186-249``)."""
     per_speaker_wins: List[List[np.ndarray]] = []
     flat_keys: List[object] = []
     file_lists: List[List[str]] = list(net.file_lists[: net.output_size()])
@@ -178,7 +179,7 @@ def compute_speaker_embeddings(
         per_speaker_wins.append(wins_list)
 
     flat = [w for wins in per_speaker_wins for w in wins]
-    it = iter(batch_median_embeddings(net, flat, store=store, keys=flat_keys))
+    it = iter(batch_median_embeddings(net, flat, store=store, keys=flat_keys, mesh=mesh))
 
     out: List[SpeakerStats] = []
     for wins_list in per_speaker_wins:

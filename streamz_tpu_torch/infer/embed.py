@@ -10,7 +10,9 @@ the ReLU-h2 head with a mean (``src/lib.rs:1450-1471``) and
 ``batch_median_embeddings`` are the last two over many clips, bucketed by
 power-of-two window count and padded to a power-of-two clip count, one
 call per bucket on the net's device; with the ingest stage's
-``DeviceFeatureStore`` a bucket gathers its rows on the device.
+``DeviceFeatureStore`` a bucket gathers its rows on the device, and with a
+``mesh`` each rank pools its share of a bucket's clips and the embeddings
+come back to every rank (``streamz_tpu/infer/embed.py:72-226``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from streamz_tpu_torch.device import upload
 from streamz_tpu_torch.dsp.features import extract_with
 from streamz_tpu_torch.dsp.mfcc import DeviceFeatureStore
 from streamz_tpu_torch.nn.model import Params, SpeakerNet, embed, forward_embedding
+from streamz_tpu_torch.parallel.mesh import fetch, pad_rows_to_mesh, put_batch_sharded
 
 
 def normalize(v: np.ndarray) -> np.ndarray:
@@ -85,6 +88,7 @@ def _masked_median(e: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
 def _batch_pooled(
     net: SpeakerNet, clips, kernel: Callable[..., torch.Tensor],
     store: Optional[DeviceFeatureStore] = None, keys: Optional[Sequence] = None,
+    mesh=None,
 ) -> List[np.ndarray]:
     """Shared scaffold: bucket clips by power-of-two window count, pad each
     bucket's clip axis to a power of two (n_valid = 0 rows are masked
@@ -94,7 +98,11 @@ def _batch_pooled(
     bucket whose clips hit is gathered on the device, and only its missed
     clips are packed on the host and scattered in; a bucket with no hit is
     packed on the host whole.  The rows are the same either way, so are the
-    embeddings."""
+    embeddings.  With ``mesh`` the clip axis is further padded to the mesh,
+    each rank pools its slice and an all-gather returns every embedding to
+    every rank; a mesh takes no store."""
+    if mesh is not None and store is not None:
+        raise ValueError("the device feature store is off under a mesh")
     arrs = [np.asarray(c, np.float32) for c in clips]
     out: List[np.ndarray] = [None] * len(arrs)  # type: ignore[list-item]
     buckets: dict = {}
@@ -120,33 +128,42 @@ def _batch_pooled(
                 for j, (r, _) in enumerate(misses):
                     pack[j, : lens[r]] = arrs[idxs[r]]
                 batch_d = store.scatter_rows(batch_d, pack, [r for r, _ in misses])
+        lens_d = None
         if batch_d is None:
             batch = np.zeros((B_pad, n_pad, feat), np.float32)
             for row, i in enumerate(idxs):
                 batch[row, : len(arrs[i])] = arrs[i]
-            batch_d = torch.from_numpy(batch).to(dev)
+            if mesh is not None:
+                _, (batch, lens_p) = pad_rows_to_mesh(mesh, batch, lens)
+                batch_d, lens_d = put_batch_sharded(mesh, batch, lens_p)
+            else:
+                batch_d = torch.from_numpy(batch).to(dev)
         with torch.inference_mode():
-            embs = kernel(params, batch_d, upload(lens, dev)).cpu().numpy()
+            embs = kernel(params, batch_d, upload(lens, dev) if lens_d is None else lens_d)
+            embs = embs.cpu().numpy() if mesh is None else fetch(embs, mesh)
         for row, i in enumerate(idxs):
             out[i] = normalize(embs[row])
     return out
 
 
-def batch_clip_embeddings(net: SpeakerNet, clips, store=None, keys=None) -> List[np.ndarray]:
+def batch_clip_embeddings(net: SpeakerNet, clips, store=None, keys=None,
+                          mesh=None) -> List[np.ndarray]:
     """Mean-pooled ReLU-h2 embeddings for many clips in few device calls,
     each L2-normalized (the per-clip ``extract_embedding_from_features``
-    contract, batched).  ``store``/``keys``: see :func:`_batch_pooled`;
-    only where ``clips[i]`` is the ingest output of ``keys[i]``."""
-    return _batch_pooled(net, clips, _fembed_mean_batch, store, keys)
+    contract, batched).  ``store``/``keys``/``mesh``: see
+    :func:`_batch_pooled`; ``store`` only where ``clips[i]`` is the ingest
+    output of ``keys[i]``."""
+    return _batch_pooled(net, clips, _fembed_mean_batch, store, keys, mesh)
 
 
-def batch_median_embeddings(net: SpeakerNet, clips, store=None, keys=None) -> List[np.ndarray]:
+def batch_median_embeddings(net: SpeakerNet, clips, store=None, keys=None,
+                            mesh=None) -> List[np.ndarray]:
     """Median-pooled ReLU-h2 embeddings for many clips, bucketed and
     batched, each L2-normalized (:func:`median_embedding_from_features`
     per clip, the even-count midpoint rule included).  ``store``/``keys``
     as :func:`batch_clip_embeddings`: a clip read from the feature cache
     must carry a key that misses."""
-    return _batch_pooled(net, clips, _fembed_median_batch, store, keys)
+    return _batch_pooled(net, clips, _fembed_median_batch, store, keys, mesh)
 
 
 def _one_clip(net: SpeakerNet, feats: np.ndarray, pool) -> np.ndarray:

@@ -9,13 +9,11 @@ The port's copy of the ``streamz_tpu/io/audio.py`` contracts:
 - ``audio_metadata``, including its quirk of always reporting 44100
   (``src/lib.rs:492-505``)
 - ``batch_resample`` parallel loader that silently drops failures
-  (``src/lib.rs:541-547``), on a Python thread pool
+  (``src/lib.rs:541-547``): the C++ runtime (:mod:`streamz_tpu_torch.io.native`)
+  when it is available, else a Python thread pool, bit-identical
 - ``cache_mp3_as_wav``/``precache_mp3_files``/``precache_target_files`` and
   the SHA-512 steganography trigger (``src/main.rs:138-214``)
 - feature cache path scheme (``src/lib.rs:550-579``)
-
-The JAX package also has a C++ batch-ingest runtime for ``batch_resample``,
-bit-identical to the thread-pool path; it is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +30,7 @@ import numpy as np
 from streamz_tpu_torch import config
 from streamz_tpu_torch.dsp.resample import resample_to_44100
 from streamz_tpu_torch.io import mp3 as mp3io
+from streamz_tpu_torch.io import native
 from streamz_tpu_torch.io import wav as wavio
 
 # Set when an ingested MP3's SHA-512 matches the active checksum constant
@@ -116,8 +115,24 @@ def audio_metadata(path: str) -> Tuple[int, int]:
 def batch_resample(
     paths: List[str], max_workers: Optional[int] = None
 ) -> List[Tuple[str, np.ndarray]]:
-    """Load+resample many files on a thread pool, dropping failures silently
-    (src/lib.rs:541-547)."""
+    """Load+resample many files in parallel, dropping failures silently
+    (src/lib.rs:541-547).
+
+    The C++ runtime runs the whole per-clip pipeline (decode → downmix →
+    FFT resample) on a ``std::thread`` pool when it is available
+    (``streamz_tpu/io/audio.py:124-133``); else a Python thread pool does.
+    The two give the same samples bit for bit."""
+    if native.available():
+        ingested = native.batch_ingest(
+            paths, config.DEFAULT_SAMPLE_RATE, threads=max_workers or 0)
+        return [(p, clip[0]) for p, clip in zip(paths, ingested) if clip is not None]
+    return batch_resample_threads(paths, max_workers)
+
+
+def batch_resample_threads(
+    paths: List[str], max_workers: Optional[int] = None
+) -> List[Tuple[str, np.ndarray]]:
+    """:func:`batch_resample` on a Python thread pool."""
 
     def _safe(p: str):
         try:

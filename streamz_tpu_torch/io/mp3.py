@@ -4,9 +4,11 @@ Replaces the reference's vendored minimp3 C decoder
 (``streamz-rs/src/lib.rs:416-444``; ``Cargo.lock`` → ``minimp3-sys``): returns
 raw interleaved i16 samples plus the (first-frame) sample rate and channel
 count.  A copy of ``streamz_tpu/io/mp3.py``: the port keeps its own.  The
-C++ batch-ingest runtime of the JAX package is not ported yet, so this is
-the port's only MP3 path.  Without ``libmpg123`` an MP3 fails to load with
-:class:`Mp3Error` and the caller reports the clip as failed.
+port's C++ ingest layer (:mod:`streamz_tpu_torch.io.native`) decodes MP3s
+through the same ``libmpg123`` when it is built; this binding is the path
+of single-clip loads and of the thread-pool ingest.  Without ``libmpg123``
+an MP3 fails to load on either path and the caller reports the clip as
+failed.
 """
 
 from __future__ import annotations

@@ -257,8 +257,9 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _k5(params: Params, rows: Rows, num_speakers: NumSpeakers, lr):
-    """K5 on CUDA rows: the gradient sums (``lr`` None) as (grads, loss_sum,
-    count), or the step in place, returning the mean loss.  One launch."""
+    """K5 on CUDA rows: the gradient sums (``lr`` None) as the flat buffer
+    of :func:`corpus_rows_sums_k5`, or the step in place, returning the
+    mean loss as a [1] tensor.  One launch."""
     dev = rows[0].device
     F, H1, H2, cap = _check_params(params, dev)
     if F > 64:
@@ -305,14 +306,7 @@ def _k5(params: Params, rows: Rows, num_speakers: NumSpeakers, lr):
     if rc != 0:
         raise RuntimeError(f"K5 (corpus_grads) launch failed: CUDA error {rc}")
     corpus_grads_k5.launches += 1
-    if lr is not None:
-        return out[0]
-    grads, off = {}, 0
-    for k in PARAM_NAMES:
-        n = params[k].numel()
-        grads[k] = out[off:off + n].view(params[k].shape)
-        off += n
-    return grads, out[off], out[off + 1]
+    return out
 
 
 def _k5_device(rows: Rows) -> torch.device:
@@ -322,12 +316,39 @@ def _k5_device(rows: Rows) -> torch.device:
     return dev
 
 
+def sums_size(params: Params) -> int:
+    """The floats of K5's flat sums buffer: the gradients' and four more."""
+    return sum(params[k].numel() for k in PARAM_NAMES) + 4
+
+
+def split_sums(params: Params, flat: torch.Tensor):
+    """(grads, loss_sum, count) as views of a flat sums buffer."""
+    grads, off = {}, 0
+    for k in PARAM_NAMES:
+        n = params[k].numel()
+        grads[k] = flat[off:off + n].view(params[k].shape)
+        off += n
+    return grads, flat[off], flat[off + 1]
+
+
+def corpus_rows_sums_k5(params: Params, rows: Rows, num_speakers: NumSpeakers) -> torch.Tensor:
+    """K5's sums form as one flat f32 buffer ``[dw1 | db1 | dw2 | db2 | dw3 |
+    db3 | loss_sum, count, 0, 0]`` (``csrc/corpus_grads.cu``'s layout, of
+    :func:`sums_size` floats), the one tensor a data-parallel step
+    all-reduces.  :func:`split_sums` reads it."""
+    if _k5_device(rows).type == "cpu":
+        grads, loss_sum, count = corpus_grads_plain(params, *rows_plain(rows), num_speakers)
+        return torch.cat([*(grads[k].reshape(-1) for k in PARAM_NAMES),
+                          loss_sum.reshape(1), count.reshape(1), loss_sum.new_zeros(2)])
+    return _k5(params, rows, num_speakers, None)
+
+
 def corpus_rows_grads_k5(params: Params, rows: Rows, num_speakers: NumSpeakers):
     """K5's sums form: summed gradients + (loss_sum, count) over ``rows``.
     Bit-reproducible on one card."""
     if _k5_device(rows).type == "cpu":
         return corpus_grads_plain(params, *rows_plain(rows), num_speakers)
-    return _k5(params, rows, num_speakers, None)
+    return split_sums(params, _k5(params, rows, num_speakers, None))
 
 
 def corpus_grads_k5(params: Params, batch: torch.Tensor, labels: torch.Tensor,
@@ -350,7 +371,7 @@ def corpus_step_k5(params: Params, rows: Rows, num_speakers: NumSpeakers, lr):
     if _k5_device(rows).type == "cpu":
         return _apply_step(params, *corpus_grads_plain(params, *rows_plain(rows),
                                                        num_speakers), lr)
-    return _k5(params, rows, num_speakers, lr)
+    return _k5(params, rows, num_speakers, lr)[0]
 
 
 # K6's routes, by what fits in a CTA's shared memory (csrc/file_train.cu).

@@ -18,6 +18,12 @@ stored with the decision.  The frontend's K1 and K2 differ by under 3%,
 and the lower of two times alone picked one in some processes and the
 other in the next.
 
+In a multi-process run (a process group of two or more ranks) nothing is
+probed, read from a cache or written: every rank takes the static default,
+as the JAX package does on more than one host
+(``streamz_tpu/runtime/autotune.py:153-158``, ``:234-235``), so that every
+rank runs the same kernels whatever its cache holds.
+
 Unlike the JAX package, a probe that raises is not skipped: a candidate
 kernel that fails to build or launch fails the run instead of quietly
 losing the measurement.  Only writing the disk cache may fail silently.
@@ -31,6 +37,8 @@ import tempfile
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+
+from streamz_tpu_torch.parallel import comm
 
 
 def _default_cache_path() -> str:
@@ -157,6 +165,8 @@ def measured_choice(
     candidate's runs (0 for probes that return one time).  A tie keeps the
     default.  The spread is stored with the decision.
     """
+    if comm.world_size() > 1:
+        return default  # before any cache lookup: every rank the same
     key = _key(stage)
     measured_set = sorted(
         f"{name}@{versions[name]}" if versions and name in versions else name
@@ -202,6 +212,8 @@ def cached_choice(stage: str, default_cuda: str, default_other: str) -> str:
     else a static default for a card (``default_cuda``) or the CPU."""
     if not on_cuda():
         return default_other
+    if comm.world_size() > 1:
+        return default_cuda
     key = _key(stage)
     if key in _memory:
         return _memory[key]

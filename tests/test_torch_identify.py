@@ -215,13 +215,17 @@ def test_identify_all_inputs_failed(corpus, monkeypatch, capsys):
                                   ["--identify", "a.wav", "--process-id", "1"],
                                   ["--no-cache-wav", "--num-processes", "2"]])
 def test_unported_flags_return_2(tmp_path, monkeypatch, capsys, args):
-    """The JAX CLI's modes that are not ported yet (the multi-host flags;
-    ``--serve`` is ported) are refused before any work: rc 2 and no model
-    is written."""
+    """The multi-host flags, once refused with rc 2, are ported: a partial
+    set of them is refused before any work as the JAX CLI refuses it
+    (``ValueError``, "pass all three"), and no model is written.  A flag
+    the port does not know still returns 2."""
     monkeypatch.chdir(tmp_path)
-    assert tcli.main(args) == 2
-    assert "not yet ported to streamz_tpu_torch" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="pass all three"):
+        tcli.main(args)
+    assert "not yet ported" not in capsys.readouterr().err
     assert not os.path.exists(tmp_path / "model.npz")
+    assert tcli.main(["--no-such-flag"]) == 2
+    assert "not yet ported to streamz_tpu_torch" in capsys.readouterr().err
 
 
 def test_help(capsys):

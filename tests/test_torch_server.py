@@ -257,15 +257,15 @@ def test_cli_serve_mode_on_cpu(net, tmp_path):
 
 def test_cli_serve_needs_a_card_unless_cpu_is_asked(tmp_path, monkeypatch, capsys):
     """``--serve`` defaults to cuda and fails at start without a card; the
-    serving flags are no longer reported as unported, the multi-host ones
-    still are."""
+    serving flags are no longer reported as unported, and a partial set of
+    the multi-host flags is refused before anything starts."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tcli.main(["--serve", "0", "--serve-streams", "2"]) == 1
     err = capsys.readouterr().err
     assert "CUDA is not available" in err and "not yet ported" not in err
-    assert tcli.main(["--serve", "0", "--coordinator", "h:1"]) == 2
-    assert "--coordinator" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="--coordinator given without"):
+        tcli.main(["--serve", "0", "--coordinator", "h:1"])
     # On the CPU without model.npz: the load fails, nothing is served.
     assert tcli.main(["--serve", "0", "--device", "cpu"]) == 1
     assert "Failed to load model" in capsys.readouterr().err
