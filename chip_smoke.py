@@ -110,7 +110,11 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    ``model.npz`` beside a bare process's after ``import torch`` and one CUDA
    product; FINALIZE verdicts those of (1); no failed tick, exit 0 on
    SIGTERM. (3) A two-child ``LocalFleet`` on the card, started beside the
-   daemon: the verdicts of (1).
+   daemon: the verdicts of (1).  (4) The identifier slot-sharded over
+   ``[cuda:0, cuda:0]`` (a ``LocalMesh``, two shards on the card; over every
+   card too when there are several), ticked in turns with an unsharded one
+   on the chunks of (1): every finalize verdict the unsharded one's, both
+   ticks' ms.
    ``[native]``: the C++ ingest layer (``streamz_tpu_torch/native/``, built
    by g++ into ``_build/``; the phase fails if it is unavailable) on the 64
    training WAVs and 16 held-out clips written at 48 and 22.05 kHz, bit for
@@ -126,18 +130,34 @@ Phases (each runs uncaught: any failure exits non-zero without a result):
    ``K1_TOL``, whether they are bit-identical printed; the batched identify
    (clip-sharded) and the long-clip identify (PCM halo) against one
    process's verdicts wherever no window lies within ``K1_TOL`` of a vote
-   change; the per-step K5 and all-reduce times of each rank.  Then the CLI
+   change; the per-step K5 and all-reduce times of each rank.  Then the
+   sharded discovery scan at full width (``SCAN_FILES`` training clips of
+   10 s, their K1 features, phase 4's model, two gloo ranks): forced
+   sharded against forced replicated (K6), the same labels, parameters
+   within ``DIST_PARAM_TOL``, every rank's bits rank 0's, no K6 on the
+   sharded route; its ms per file, all-reduces per file and one
+   all-reduce's ms; then the measured scan choice with both probe times,
+   the same on both ranks, cached for the CLI.  Then the CLI
    (``python -m streamz_tpu_torch`` with ``--coordinator/--num-processes/
    --process-id``) as two processes against one, from a cold frontend
-   cache (no probe under a mesh: both run K1): the default run on phase 4's
-   corpus, the same ``train_files.txt``, K1, K5 and K6 launched on each
-   rank; ``--eval`` of the single process's ``model.npz`` as two
-   processes, the same metrics; ``--eval`` of each run's own model
+   cache (no probe under a mesh: both run K1) and that cached scan choice:
+   the default run on phase 4's corpus, the same ``train_files.txt``, K1,
+   K5 and K6 (on the ``'single'`` route) launched on each rank, each
+   rank's feature store of its shards on with ``host_pack_bytes`` 0;
+   ``--eval`` of the single process's ``model.npz`` as two processes
+   through the mesh store, the same metrics; the default run forced
+   sharded on 16 training clips cut to ``SHORT_SECONDS`` (2 of each
+   speaker, 1 labelled) against the same two ranks forced replicated, the
+   same ``train_files.txt``; ``--eval`` of each run's own model
    printed beside them, with how many targets lie within the models' float
    noise (the DP corpus training's summation order, carried through the
    discovery loop) of a decision.  Then one rank over NCCL: the DP step
    bit-identical to K5's sums with ``_apply_step``, its K5 and all-reduce
    times.  Nothing here is a multi-GPU speed: the ranks share one card.
+   ``[multichip]``: ``streamz_tpu_torch.entry.entry()`` on the card against
+   the CPU's within ``GPU_VS_CPU_TOL``, then ``dryrun_multichip(2)`` (two
+   gloo ranks on the card) and ``dryrun_multichip(1)`` (NCCL): every one of
+   its five programs ``ok``.
 7. The GPU path against the CPU path on 8 clips (features, embeddings,
    similarities, and the gate's verdicts wherever the similarities lie
    farther from a gate bound than the two paths differ).
@@ -189,8 +209,9 @@ whose ``launches`` are each kernel's count in the one run of its own path
 (named in ``path``: the default run for K5, K6 and the probe's winner, the
 vote pipeline through its backend for the other MFCC kernels, the bench
 twin for K7), with every path's count beside it, and as its last line ``{"ok": true, "device": {...}}``.  Writes the same
-numbers to ``chiprun_out/chip_smoke.json``.  Exits non-zero, printing no
-result, without CUDA or outside a checkout of the repository.
+numbers to ``chiprun_out/chip_smoke.json`` and every printed line to
+``chiprun_out/chip_smoke.log``.  Exits non-zero, printing no result,
+without CUDA or outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -270,6 +291,11 @@ GPU_VS_CPU_TOL = 1e-3  # features / embeddings / sims / margins, GPU vs CPU
 DIST_PARAM_TOL = 1e-3
 DIST_DEADLINE_S = 300
 DIST_TIMED_STEPS = 20
+# [dist]'s sharded discovery scan: the first SCAN_FILES training clips at
+# full length; the forced-sharded CLI run: 16 clips cut to SHORT_SECONDS
+# (a 512-window bucket: 321 all-reduces a file).
+SCAN_FILES = 8
+SHORT_SECONDS = 2.5
 # The steganography codec's payloads, 64 B to the 128 KiB cap (w3 of
 # [256, 1,048,576] f32 = 1 GiB), and the payload the --encode run hides.
 STEGO_BYTES = (64, 4096, 65536, 131072)
@@ -756,6 +782,7 @@ def serve_phase(net, pcms, dev, card, work, report):
         fail(f"[serve] the u8 wire differs from host-decoded i16: {u8.stats()}")
     print(f"[serve] u8 wire: {u8.stats()['wire_dispatches']['u8']} dispatches of "
           f"mu-law bytes, the carry bit-identical to host-decoded i16")
+    local_mesh_phase(net, S, len(pcms[0]), chunk, dev, card, report)
     report["serve_in_process"] = {
         "streams": S, "audio_s": audio_s, "wall_s": wall, "aggregate_rtf": rtf,
         "tick_device_ms": percentiles_ms([d / 1e3 for d in dev_ms]),
@@ -958,6 +985,83 @@ def serve_phase(net, pcms, dev, card, work, report):
         fleet.stop()
 
 
+def local_mesh_phase(net, S: int, n: int, chunk, dev, card, report) -> None:
+    """``[serve]``: the identifier slot-sharded over ``[card, card]`` (two
+    shards on one card; and over every card when there are several),
+    ticked in turns with an unsharded one on the same feeds (the 100 ms
+    chunks of (1)): every finalize verdict the unsharded one's (the speaker,
+    the confidence within ``VERDICT_CONF_RTOL``); each tick timed by the
+    host clock between synchronisations."""
+    from streamz_tpu_torch.app.serve import MultiStreamIdentifier
+
+    meshes = {"2 shards on one card": [str(dev)] * 2}
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes[f"{n_cards} cards"] = [f"cuda:{i}" for i in range(n_cards)]
+    report["serve_local_mesh"] = {}
+    for label, devices in meshes.items():
+        pair = {"unsharded": MultiStreamIdentifier(net, n_streams=S, threshold=0.0),
+                "sharded": MultiStreamIdentifier(net, n_streams=S, threshold=0.0,
+                                                 mesh=devices)}
+        ticks = {k: [] for k in pair}
+        for srv in pair.values():
+            for _ in range(S):
+                srv.open()
+        for a in range(0, n, SERVE_CHUNK):
+            for k, srv in pair.items():
+                for i in range(S):
+                    srv.feed(i, *chunk(i, a, a + SERVE_CHUNK))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                srv.tick()
+                torch.cuda.synchronize()
+                ticks[k].append(time.perf_counter() - t0)
+        fin = {k: [srv.finalize(i) for i in range(S)] for k, srv in pair.items()}
+        for i, (got, want) in enumerate(zip(fin["sharded"], fin["unsharded"])):
+            if (got is None) != (want is None) or got is not None and (
+                    got[0] != want[0]
+                    or abs(got[1] - want[1]) > VERDICT_CONF_RTOL * abs(want[1])):
+                fail(f"[serve] {label}: stream {i} sharded {got}, unsharded {want}")
+        ms = {k: float(np.median(v)) * 1e3 for k, v in ticks.items()}
+        print(f"[serve] local-device identifier over {devices} ({label}): {S} streams, every "
+              f"finalize verdict the unsharded identifier's (confidences within "
+              f"{VERDICT_CONF_RTOL:g}); tick ms p50 (synchronised, in turns) sharded "
+              f"{ms['sharded']:.3f} vs unsharded {ms['unsharded']:.3f} | {card}")
+        report["serve_local_mesh"][label] = {"devices": devices, "tick_ms_p50": ms,
+                                             "ticks": len(ticks["sharded"])}
+
+
+def multichip_phase(card, report) -> None:
+    """``[multichip]``: ``entry()`` on the card against the CPU's, then the
+    port's ``dryrun_multichip`` over two ranks sharing the card (gloo) and
+    over one rank (NCCL): every program ``ok`` (a failure raises)."""
+    from streamz_tpu_torch import entry as tentry
+
+    fn, args = tentry.entry()
+    fn_cpu, args_cpu = tentry.entry(device="cpu")
+    with torch.no_grad():
+        got, want = fn(*args).cpu().numpy(), fn_cpu(*args_cpu).numpy()
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+    if not np.isfinite(got).all() or err > GPU_VS_CPU_TOL:
+        fail(f"[multichip] entry() on the card {got.shape}, {err:.2e} from the CPU's")
+    report["multichip"] = {"entry_max_abs_vs_cpu": err}
+    for n in (2, 1):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = tentry.dryrun_multichip(n)
+        wall = time.perf_counter() - t0
+        line = next(ln for ln in buf.getvalue().splitlines()
+                    if ln.startswith("multichip programs:"))
+        backend = "gloo" if n > torch.cuda.device_count() else "nccl"
+        print(f"[multichip] dryrun_multichip({n}), {n} rank(s) over {backend}: "
+              f"{sum(v == 'ok' for v in res.values())} of {len(tentry.PROGRAMS)} programs ok "
+              f"({line}) in {wall:.1f} s; entry() vote sums {got.shape}, {err:.2e} from "
+              f"the CPU's | {card}")
+        report["multichip"][f"{n} ranks"] = {"results": res, "wall_s": wall,
+                                             "backend": backend}
+
+
 # ---------------------------------------------------------------------------
 # [native] and [dist].
 # ---------------------------------------------------------------------------
@@ -1096,12 +1200,15 @@ def dist_worker(argv) -> int:
         rc, lines, rep = run_cli(list(argv[5:]) + flags)
         out = {"rc": rc, "lines": lines, "counts": counts(), "s": time.perf_counter() - t0,
                "phase_s": rep.get("phase_seconds"), "metrics": rep.get("metrics"),
-               "processed": len(rep.get("decision_margins") or [])}
+               "processed": len(rep.get("decision_margins") or []),
+               "store_stats": rep.get("store_stats")}
         (work / f"out_{rank}.json").write_text(json.dumps(out))
         return 0 if rc == 0 else 1
 
     dev = comm.initialize_distributed(f"127.0.0.1:{port}", world, rank)
     mesh = comm.make_mesh()
+    if mode == "scan":
+        return scan_worker(work, rank, mesh, dev, zero, counts, out)
     d = np.load(work / "in.npz")
     ns = int(d["ns"])
     out.update(backend=comm.backend(), device=str(dev))
@@ -1187,6 +1294,83 @@ def dist_worker(argv) -> int:
     return 0
 
 
+def scan_worker(work: Path, rank: int, mesh, dev, zero, counts, out: dict) -> int:
+    """One rank of ``[dist]``'s sharded scan: the discovery loop over
+    ``scan.npz``'s files from the trained model, forced onto the sharded
+    route and then onto the replicated one (K6), each from key 0; the
+    all-reduces of the sharded run counted; the all-reduce of one chunk's
+    buffer timed alone; then the measured scan choice with its two probe
+    times, from a fresh cache (rank 0 writes it to ``scan_cache.json``).
+    Writes ``out_<rank>.json`` and its parameters to ``scan_<rank>.npz``."""
+    from streamz_tpu_torch import config
+    from streamz_tpu_torch.app import device_loop as dl
+    from streamz_tpu_torch.nn import checkpoint, drivers
+    from streamz_tpu_torch.nn import train_kernels as tk
+    from streamz_tpu_torch.parallel import comm
+    from streamz_tpu_torch.runtime import autotune
+
+    out.update(backend=comm.backend(), device=str(dev))
+    d = np.load(work / "scan.npz")
+    fm = {f"scan_{i}": d[f"f{i}"] for i in range(int(d["n"]))}
+    all_reduces = [0]
+    psum = comm.psum
+
+    def counting(x, m):
+        all_reduces[0] += 1
+        return psum(x, m)
+
+    comm.psum = counting
+    arrays = {}
+    for route, env in (("sharded", "1"), ("replicated", "0")):
+        os.environ["STREAMZ_SHARD_DISCOVERY"] = env
+        drivers._key_counter[0] = 0
+        net = checkpoint.load(str(work / "model.npz"), device=dev)
+        files = [(p, None) for p in fm]
+        zero()
+        all_reduces[0] = 0
+        t0 = time.perf_counter()
+        _, n, _, _, margins = dl.run_incremental_device(
+            net, files, dict(fm), burn_in_limit=0,
+            conf_threshold=config.DEFAULT_CONF_THRESHOLD, dropout=config.DEFAULT_DROPOUT,
+            batch_size=config.BATCH_SIZE, epochs=config.INCREMENTAL_EPOCHS,
+            max_speakers=None, show_progress=False, mesh=mesh)
+        torch.cuda.synchronize()
+        out[route] = {"s": time.perf_counter() - t0, "files": n, "counts": counts(),
+                      "all_reduces": all_reduces[0], "labels": [c for _, c in files],
+                      "margins": margins}
+        arrays.update({f"{route}_{k}": v.cpu().numpy() for k, v in net.params.items()})
+    comm.psum = psum
+    os.environ.pop("STREAMZ_SHARD_DISCOVERY")
+    # One chunk's all-reduce alone: the gradients, the loss and the count.
+    buf = torch.zeros((tk.sums_size(net.params),), device=dev)
+    ms = []
+    for _ in range(DIST_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comm.psum(buf, mesh)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["all_reduce_ms"] = float(np.median(ms[1:]))
+    out["all_reduce_bytes"] = buf.numel() * 4
+    # The measured choice, probed afresh by every rank.
+    os.environ["STREAMZ_AUTOTUNE_CACHE"] = str(work / "scan_cache.json")
+    os.environ.pop("STREAMZ_NO_AUTOTUNE", None)
+    autotune.reset()
+    first = d["f0"]
+    bucket = config.next_pow2(-(-len(first) // config.BATCH_SIZE)) * config.BATCH_SIZE
+    zero()
+    out["choice"] = dl._resolve_scan_backend(mesh, config.INCREMENTAL_EPOCHS,
+                                             config.BATCH_SIZE, net.working_params(),
+                                             first.shape[1], bucket)
+    out["probe_counts"] = counts()
+    out["probe_s"] = autotune.probe_times[f"discovery_scan_{mesh.size()}dev:"
+                                          f"{autotune.device_kind()}"]
+    np.savez(work / f"scan_{rank}.npz", **arrays)
+    (work / f"out_{rank}.json").write_text(json.dumps(out))
+    comm.shutdown()
+    return 0
+
+
 def eval_noise(cli, dev):
     """How far apart the runs' models score the --eval targets: the largest
     difference of any target's cosine similarity to any stored centroid
@@ -1216,6 +1400,117 @@ def eval_noise(cli, dev):
     margin = np.minimum(top[:, 1] - top[:, 0],
                         np.abs(top[:, 1] - config.DEFAULT_CONF_THRESHOLD))
     return int((margin <= noise).sum()), noise
+
+
+def scan_phase(work: str, root: Path, train_pcm, dev, card, report, by_path) -> Path:
+    """``[dist]``'s sharded discovery scan at full width: the first
+    ``SCAN_FILES`` training files (their K1 features) from the trained
+    model, two gloo ranks sharing the card, forced sharded and then
+    replicated (K6); labels equal, parameters within ``DIST_PARAM_TOL``,
+    every rank's bits rank 0's.  Then the measured scan choice.  Returns
+    the directory whose ``scan_cache.json`` holds that choice."""
+    import shutil
+
+    from streamz_tpu_torch import config
+    from streamz_tpu_torch.app.device_loop import PROBE_FILES
+    from streamz_tpu_torch.dsp.features import FeatureExtractor
+
+    scan = root / "scan"
+    scan.mkdir()
+    feats = FeatureExtractor("pallas_v4", device=dev).extract_batch(list(train_pcm[:SCAN_FILES]))
+    np.savez(scan / "scan.npz", n=SCAN_FILES, **{f"f{i}": f for i, f in enumerate(feats)})
+    shutil.copy(Path(work) / config.MODEL_PATH, scan / "model.npz")
+    t0 = time.perf_counter()
+    outs = spawn_ranks("scan", [scan, scan])
+    wall = time.perf_counter() - t0
+    arrays = [dict(np.load(scan / f"scan_{r}.npz")) for r in range(len(outs))]
+    for r, (o, a) in enumerate(zip(outs, arrays)):
+        if o["backend"] != "gloo":
+            fail(f"[dist] scan rank {r}: backend {o['backend']}")
+        if any(not np.array_equal(v, arrays[0][k]) for k, v in a.items()):
+            fail(f"[dist] scan rank {r}'s parameters differ from rank 0's")
+        for route, k6 in (("sharded", 0), ("replicated", SCAN_FILES)):
+            by_path[f"[dist] scan rank {r}, {route}"] = o[route]["counts"]
+            if o[route]["counts"]["K6"] != k6 or o[route]["files"] != SCAN_FILES:
+                fail(f"[dist] scan rank {r}, {route}: {o[route]['files']} files, "
+                     f"launches {o[route]['counts']}")
+        by_path[f"[dist] scan rank {r}, probe"] = o["probe_counts"]
+        if o["sharded"]["labels"] != outs[0]["replicated"]["labels"]:
+            fail(f"[dist] scan rank {r}: sharded labels {o['sharded']['labels']}, "
+                 f"replicated {outs[0]['replicated']['labels']}")
+        if o["choice"] != outs[0]["choice"]:
+            fail(f"[dist] scan: rank {r} chose {o['choice']!r}, rank 0 {outs[0]['choice']!r}")
+    err = max(float(np.abs(arrays[0][f"sharded_{k}"] - arrays[0][f"replicated_{k}"]).max())
+              for k in ("w1", "b1", "w2", "b2", "w3", "b3"))
+    o = outs[0]
+    sh, rep = o["sharded"], o["replicated"]
+    per_file = sh["all_reduces"] / SCAN_FILES
+    margins = [m for m in sh["margins"] if math.isfinite(m)]
+    ratio = o["probe_s"]["sharded"] / o["probe_s"]["single"]
+    print(f"[dist] sharded discovery scan, {SCAN_FILES} files of 10 s at 60-512-256, capacity "
+          f"{arrays[0]['sharded_b3'].shape[0]}, 2 gloo ranks on one card ({wall:.1f} s): "
+          f"{sh['s'] / SCAN_FILES * 1e3:.1f} ms per file, {per_file:.0f} all-reduces per file "
+          f"(one of {o['all_reduce_bytes']} B: {o['all_reduce_ms']:.3f} ms alone), no K6; "
+          f"replicated route (K6) {rep['s'] / SCAN_FILES * 1e3:.1f} ms per file; labels "
+          f"equal {sh['labels']}, parameters max abs {err:.2e} (bound {DIST_PARAM_TOL:g}), "
+          f"every rank's bits rank 0's; smallest decision margin "
+          f"{min(margins) if margins else float('inf'):.3e} | {card}")
+    print(f"[dist] scan choice measured on this card: {o['choice']!r} (probes of "
+          f"{PROBE_FILES} files at the leading bucket: 'single' {o['probe_s']['single'] * 1e3:.1f} ms, "
+          f"'sharded' {o['probe_s']['sharded'] * 1e3:.1f} ms, {ratio:.0f}x), the same on "
+          f"every rank | {card}")
+    if err > DIST_PARAM_TOL:
+        fail(f"[dist] the sharded scan's parameters lie {err:.2e} from the replicated route's")
+    report["dist"]["scan"] = {
+        "files": SCAN_FILES, "wall_s": wall, "err": err, "choice": o["choice"],
+        "probe_s": o["probe_s"], "all_reduce_ms": o["all_reduce_ms"],
+        "all_reduce_bytes": o["all_reduce_bytes"],
+        "ranks": [{k: x[k] for k in ("sharded", "replicated", "probe_counts")} for x in outs]}
+    return scan
+
+
+def short_cli_phase(root: Path, train_pcm, spk, env, card, report, by_path) -> None:
+    """``[dist]``: the CLI's default run as two ranks forced onto the
+    sharded scan, on 16 training clips (2 of each speaker, 1 labelled) cut
+    to 2.5 s, against the same two ranks forced onto the replicated route:
+    the same ``train_files.txt``, no K6 on the sharded route."""
+    from streamz_tpu_torch import config
+
+    idx = [i for i in range(len(spk)) if i % CLIPS_PER_SPEAKER in (0, CLIPS_PER_SPEAKER // 2)]
+    cut = int(SHORT_SECONDS * RATE)
+    dirs = {route: [root / f"short_{route}_{r}" for r in range(2)]
+            for route in ("sharded", "replicated")}
+    cwd = os.getcwd()
+    for ds in dirs.values():
+        for d in ds:
+            d.mkdir()
+            os.chdir(d)
+            write_corpus(train_pcm[idx, :cut], spk[idx], 1, "short")
+    os.chdir(cwd)
+    runs = {}
+    for route, flag in (("sharded", "1"), ("replicated", "0")):
+        runs[route] = spawn_ranks("cli", dirs[route], env=dict(env, STREAMZ_SHARD_DISCOVERY=flag),
+                                  tag=f"cli_short_{route}")
+        for r, o in enumerate(runs[route]):
+            by_path[f"[dist] 2 processes, rank {r}, {len(idx)} x {SHORT_SECONDS} s, "
+                    f"{route}"] = o["counts"]
+            k6 = o["processed"] if route == "replicated" else 0
+            if o["rc"] != 0 or o["processed"] != len(idx) or o["counts"]["K6"] != k6:
+                fail(f"[dist] short CLI, {route}, rank {r}: {o['processed']} files, "
+                     f"launches {o['counts']}")
+    want = (dirs["replicated"][0] / config.TRAIN_FILE_LIST).read_text()
+    for d in dirs["sharded"] + dirs["replicated"]:
+        if (d / config.TRAIN_FILE_LIST).read_text() != want:
+            fail(f"[dist] short CLI: {d.name}'s train_files.txt differs from the replicated "
+                 "route's")
+    sh = runs["sharded"][0]["phase_s"]["discovery"]
+    rp = runs["replicated"][0]["phase_s"]["discovery"]
+    print(f"[dist] CLI default run forced sharded (STREAMZ_SHARD_DISCOVERY=1), 2 ranks, "
+          f"{len(idx)} clips of {SHORT_SECONDS} s: train_files.txt identical to the forced "
+          f"replicated run's; discovery {sh:.2f} s ({sh / len(idx) * 1e3:.1f} ms per file), "
+          f"replicated {rp:.2f} s ({rp / len(idx) * 1e3:.1f} ms per file) | {card}")
+    report["dist"]["short_cli"] = {route: [{k: o[k] for k in ("s", "counts", "phase_s")}
+                                           for o in v] for route, v in runs.items()}
 
 
 def dist_phase(work: str, train_pcm, spk, query_pcm, pool, pool_y, dev, card, report,
@@ -1322,15 +1617,18 @@ def dist_phase(work: str, train_pcm, spk, query_pcm, pool, pool_y, dev, card, re
         "ranks": [{k: o[k] for k in ("k5_ms", "all_reduce_ms", "corpus_s", "corpus_counts",
                                      "halo_counts", "identify_counts")} for o in outs]}
 
+    scan_dir = scan_phase(work, root, train_pcm, dev, card, report, by_path)
+
     # The CLI: one process, then two, from a cold frontend cache (no probe
-    # under a mesh: both run K1).
+    # under a mesh: both run K1) and the scan choice the sharded scan's
+    # probe cached (the replicated route, when the card decided so).
     cli = {1: [root / "single"], 2: [root / "p0", root / "p1"]}
     for d in cli[1] + cli[2]:
         d.mkdir()
         os.chdir(d)
         write_corpus(train_pcm, spk, LABELLED_PER_SPEAKER, "train")
     os.chdir(work)
-    env = dict(os.environ, STREAMZ_AUTOTUNE_CACHE=str(root / "cold.json"),
+    env = dict(os.environ, STREAMZ_AUTOTUNE_CACHE=str(scan_dir / "scan_cache.json"),
                STREAMZ_NO_AUTOTUNE="1")
     runs = {}
 
@@ -1346,10 +1644,17 @@ def dist_phase(work: str, train_pcm, spk, query_pcm, pool, pool_y, dev, card, re
     for d in cli[2]:
         if (d / config.TRAIN_FILE_LIST).read_text() != want_labels:
             fail(f"[dist] {d.name}'s train_files.txt differs from the single process's")
+    scan_choice = report["dist"]["scan"]["choice"]
     for r, o in enumerate(runs["default run", 2]):
         c = o["counts"]
-        if c["K1"] < 1 or c["K5"] < 1 or c["K6"] != o["processed"]:
-            fail(f"[dist] CLI rank {r}: launches {c}, {o['processed']} files processed")
+        k6 = o["processed"] if scan_choice == "single" else 0
+        if c["K1"] < 1 or c["K5"] < 1 or c["K6"] != k6:
+            fail(f"[dist] CLI rank {r}: launches {c}, {o['processed']} files processed "
+                 f"on the {scan_choice!r} route")
+        st = o["store_stats"]
+        if st is None or st["host_pack_bytes"] != 0:
+            fail(f"[dist] CLI rank {r}: the mesh store's stats {st} (expected on, "
+                 "host_pack_bytes 0)")
         if not any("Running on 2 devices" in ln and "gloo" in ln for ln in o["lines"]):
             fail(f"[dist] CLI rank {r} did not report the mesh")
     # --eval of each run's own model.npz (the ranks' differ from the single
@@ -1366,12 +1671,18 @@ def dist_phase(work: str, train_pcm, spk, query_pcm, pool, pool_y, dev, card, re
         shutil.copy(cli[1][0] / config.MODEL_PATH, d / config.MODEL_PATH)
     run("--eval, one model", ("--eval",), 2)
     same = [o["metrics"] for o in runs["--eval, one model", 2]]
+    for r, o in enumerate(runs["--eval, one model", 2]):
+        if o["store_stats"] is None or o["store_stats"]["host_pack_bytes"] != 0:
+            fail(f"[dist] CLI --eval rank {r}: the mesh store's stats {o['store_stats']}")
     single, two = runs["default run", 1][0], runs["default run", 2]
     print(f"[dist] CLI default run, one process {single['s']:.1f} s vs two over gloo "
-          f"{max(o['s'] for o in two):.1f} s: train_files.txt identical on both ranks; "
-          f"launches per rank {[o['counts'] for o in two]}; phases one process "
-          f"{single['phase_s']}, rank 0 {two[0]['phase_s']} | {card}")
-    print(f"[dist] CLI --eval: one process's model.npz as two processes: metrics "
+          f"{max(o['s'] for o in two):.1f} s, the discovery loop on the cached "
+          f"{scan_choice!r} route, each rank's store of its shards on (host_pack_bytes 0): "
+          f"train_files.txt identical on both ranks; launches per rank "
+          f"{[o['counts'] for o in two]}; phases one process {single['phase_s']}, rank 0 "
+          f"{two[0]['phase_s']} | {card}")
+    print(f"[dist] CLI --eval: one process's model.npz as two processes, through the "
+          f"mesh store (host_pack_bytes 0): metrics "
           f"{'equal' if all(m == own1 for m in same) else 'DIFFER'} ({own1}); each "
           f"run's own model: accuracy {own1['accuracy']:.4f} (one process) vs "
           f"{[m['accuracy'] for m in own2]} (two), the models' similarities differ by up "
@@ -1382,6 +1693,7 @@ def dist_phase(work: str, train_pcm, spk, query_pcm, pool, pool_y, dev, card, re
         {k: o[k] for k in ("s", "counts", "phase_s", "metrics", "processed")} for o in v]
         for (a, w), v in runs.items()}
     report["dist"]["eval_noise"] = {"similarity": noise, "targets_within": near}
+    short_cli_phase(root, train_pcm, spk, env, card, report, by_path)
 
     # One rank over NCCL: the DP step.
     nccl = root / "nccl"
@@ -1400,6 +1712,26 @@ def dist_phase(work: str, train_pcm, spk, query_pcm, pool, pool_y, dev, card, re
     shutil.rmtree(root, ignore_errors=True)
 
 
+class _Tee(io.TextIOBase):
+    """Writes to every stream given: the standard output and the run's log
+    (a remote run may hand back only the end of its output)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
+
+    def fileno(self) -> int:
+        return self.streams[0].fileno()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("CUDA is not available; this check needs an NVIDIA GPU")
@@ -1407,6 +1739,8 @@ def main() -> int:
     if missing:
         fail(f"run from a checkout of the repository ({missing} missing in {CSRC})")
     sys.path.insert(0, str(HERE))
+    (HERE / "chiprun_out").mkdir(exist_ok=True)
+    sys.stdout = _Tee(sys.stdout, open(HERE / "chiprun_out" / "chip_smoke.log", "w"))
 
     from streamz_tpu_torch import _cuda_build, bench, config
     from streamz_tpu_torch.app.corpus import train_corpus
@@ -2077,6 +2411,8 @@ def main() -> int:
         native_phase(work, names, query_pcm, card, report)
         mark("dist")
         dist_phase(work, train_pcm, spk, query_pcm, pool, pool_y, dev, card, report, by_path)
+        mark("multichip")
+        multichip_phase(card, report)
 
         mark("K7 check")
         # K7 on the identify batch, every window of the 64 held-out clips,

@@ -1,7 +1,6 @@
 """The discovery loop with its decision state on the device.
 
-The port of the single-device path of ``streamz_tpu/app/device_loop.py``.
-Per file, in list order, and without waiting on the host, it runs the
+The port of ``streamz_tpu/app/device_loop.py``.  Per file, in list order, and without waiting on the host, it runs the
 reference's hot loop C (``streamz-rs/src/main.rs:750-835``):
 
     embed (masked mean ReLU-h2, normalized)    src/main.rs:764-768
@@ -22,21 +21,45 @@ bucket only to bound its compiles; the trainer draws the same bits for
 every pad size (the threefry counter layout, a stable argsort, masked
 padding rows), so the labels do not depend on it.
 
-Two knobs of the JAX loop have no counterpart, and need none on one card:
-``MAX_SCAN_FILES`` (``streamz_tpu/app/device_loop.py:56``) caps the files
-of one ``lax.scan`` dispatch to bound the compiled variants and the
-padding; here nothing is compiled per shape and each file is its own K6
-launch, queued without waiting, so there is no dispatch to cap.
-``_resolve_scan_backend`` (``:330``) measures the single-device scan
-against the SPMD one that shards a file's windows over a mesh.  The SPMD
-scan is not ported yet: under a mesh this loop runs replicated on every
-rank, each rank computing the same labels (the JAX package's
-``STREAMZ_SHARD_DISCOVERY=0`` route, ``:87-103``), and asking for the
-sharded scan raises (``app/incremental.run_incremental``).
+``MAX_SCAN_FILES`` (``streamz_tpu/app/device_loop.py:56``) has no
+counterpart: it caps the files of one ``lax.scan`` dispatch to bound the
+compiled variants and the padding; here nothing is compiled per shape and
+each file is its own K6 launch, queued without waiting.
+``_prng_pad_invariant`` (``:67``) has none either: it guards the JAX
+loop's padding against the legacy threefry layout, and the port's
+threefry twin implements only the partitionable layout, so padding never
+changes a draw.
+
+Under a ``mesh`` of two or more ranks the loop takes one of two routes,
+the same on every rank (``:271-424``, ``:582-700``):
+
+- ``'sharded'``: each rank computes its slice of the window axis of every
+  file's embedding forward and of every training chunk's gradient, each
+  merged with one all-reduce (``train_on_windows_sharded_impl``); plain
+  torch ops, as the JAX package's route is XLA.  A file's windows are
+  padded to a mesh multiple by adding ``batch_size`` steps.
+- ``'single'``: every rank runs the whole loop on its own device, K6 and
+  all, and computes the same labels.
+
+``STREAMZ_SHARD_DISCOVERY`` forces the sharded route (any value but
+``"0"``) or the replicated one (``"0"``); unset, :func:`_resolve_scan_backend`
+measures both on one synthetic 8-file dispatch at the run's leading bucket,
+every rank deciding alike (``runtime/autotune.measured_choice``).  The
+decision state (class count, centroids, labels) stays replicated, so every
+rank takes every branch alike and the parameters stay bit-identical on
+every rank.  The sharded route's labels equal the replicated route's up to
+near-ties: its all-reduce sums in another order, so two centroids within
+float noise of each other may argmax either way (the docstring of
+``_file_body``, ``:120-122``).
 
 With the ingest stage's ``DeviceFeatureStore`` each file's windows are
-gathered on the device from the frontend's own output; a file the store
-misses is packed on the host and scattered in alone.  The gathered rows
+gathered on the device from the frontend's own output (under a mesh the
+store's replicated gather, which all-gathers rows held by other ranks); a
+file the store misses is packed on the host and scattered in alone.  A
+store built under another mesh than the loop's (one built under a mesh fed
+to a loop without one, or the reverse) is dropped with the JAX package's
+message (``:596-618``); since both routes run under the mesh here, a
+store built under the loop's mesh feeds either.  The gathered rows
 equal the host-packed ones bit for bit (the frontend zeroes every frame
 past a clip's window count), so labels, parameters and margins are those
 of the run without a store.  Without a store every file's windows go up in
@@ -45,35 +68,63 @@ one upload.
 
 from __future__ import annotations
 
+import os
+import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from streamz_tpu_torch import config
+from streamz_tpu_torch import _cuda_build, config
 from streamz_tpu_torch.dsp.mfcc import DeviceFeatureStore
 from streamz_tpu_torch.infer.embed import average_vectors
 from streamz_tpu_torch.nn import prng
 from streamz_tpu_torch.nn.drivers import _fresh_key
 from streamz_tpu_torch.nn.model import SpeakerNet, forward_embedding
-from streamz_tpu_torch.nn.train import train_on_windows_impl
+from streamz_tpu_torch.nn.train import train_on_windows_impl, train_on_windows_sharded_impl
+from streamz_tpu_torch.parallel import comm
+from streamz_tpu_torch.runtime import autotune
 from streamz_tpu_torch.runtime.progress import progress
+
+# The files of the scan probe's synthetic dispatch (``:348``).
+PROBE_FILES = 8
+
+
+def scan_forced_sharded(mesh) -> bool:
+    """Whether ``STREAMZ_SHARD_DISCOVERY`` forces the sharded route for
+    this mesh: set to anything but ``"0"``, with two or more ranks
+    (``streamz_tpu/app/device_loop.py:87-106``)."""
+    env = os.environ.get("STREAMZ_SHARD_DISCOVERY")
+    return mesh is not None and mesh.size() > 1 and env is not None and env != "0"
 
 
 def _file_step(state, windows, n_valid, label, burn, threshold, lr, key,
-               seed_cent, seed_mask, max_speakers, dropout, epochs, batch_size):
+               seed_cent, seed_mask, max_speakers, dropout, epochs, batch_size,
+               mesh=None):
     """One file of the loop on the device; ``state`` is
     (params, num_speakers, run_sum, run_cnt), updated in place.  Returns
     device tensors: the speaker id, the mean loss, the embedding and the
-    decision margin."""
+    decision margin.  With ``mesh`` (the sharded route; ``windows`` padded
+    to a mesh multiple) the embedding forward and the training split the
+    window axis over its ranks."""
     params, ns, run_sum, run_cnt = state
     dev = windows.device
     W = windows.shape[0]
     capacity = params["b3"].shape[0]
 
-    # Clip embedding: masked mean ReLU-h2, L2-normalized.
-    valid = (torch.arange(W, device=dev) < n_valid).to(torch.float32)
-    s = (forward_embedding(params, windows) * valid[:, None]).sum(0) / max(n_valid, 1)
+    # Clip embedding: masked mean ReLU-h2, L2-normalized; under a mesh the
+    # masked sum of this rank's window slice, summed over the ranks.
+    if mesh is None:
+        valid = (torch.arange(W, device=dev) < n_valid).to(torch.float32)
+        s = (forward_embedding(params, windows) * valid[:, None]).sum(0)
+    else:
+        wl = W // mesh.size()
+        lo = comm.axis_index(mesh) * wl
+        valid = (lo + torch.arange(wl, device=dev) < n_valid).to(torch.float32)
+        s = comm.psum((forward_embedding(params, windows[lo:lo + wl])
+                       * valid[:, None]).sum(0), mesh)
+    s = s / max(n_valid, 1)
     norm = torch.sqrt((s * s).sum())
     emb = torch.where(norm > 1e-6, s / norm, s)
 
@@ -122,10 +173,16 @@ def _file_step(state, windows, n_valid, label, burn, threshold, lr, key,
     # Train: one-hot target only when the class is live (src/lib.rs:592-594).
     cols = torch.arange(capacity, device=dev)
     tvec = ((cols == sid) & (sid < ns_new)).to(torch.float32)
-    _, loss = train_on_windows_impl(
-        params, windows, n_valid, tvec, ns_new, key, lr, dropout,
-        epochs=epochs, batch_size=batch_size,
-    )
+    if mesh is None:
+        _, loss = train_on_windows_impl(
+            params, windows, n_valid, tvec, ns_new, key, lr, dropout,
+            epochs=epochs, batch_size=batch_size,
+        )
+    else:
+        _, loss = train_on_windows_sharded_impl(
+            params, windows, n_valid, tvec, ns_new, key, lr, dropout,
+            epochs=epochs, batch_size=batch_size, mesh=mesh,
+        )
 
     run_sum.index_add_(0, sid.reshape(1), emb[None, :])
     run_cnt.index_add_(0, sid.reshape(1), torch.ones(1, device=dev))
@@ -134,16 +191,79 @@ def _file_step(state, windows, n_valid, label, burn, threshold, lr, key,
 
 
 def _store_windows(store: DeviceFeatureStore, path: str, windows: np.ndarray,
-                   w_pad: int, dev: torch.device) -> torch.Tensor:
-    """A file's [w_pad, F] windows gathered from the store, or, on a miss,
-    packed on the host and scattered in (metered in ``store.stats``)."""
-    wins, missing = store.gather_partial([path], w_pad)
+                   w_pad: int, dev: torch.device, mesh=None) -> torch.Tensor:
+    """A file's [w_pad, F] windows gathered from the store (replicated under
+    ``mesh``), or, on a miss, packed on the host and scattered in (metered
+    in ``store.stats``)."""
+    wins, missing = store.gather_partial([path], w_pad, mesh=mesh)
     if missing:
         pack = np.zeros((1, w_pad, windows.shape[1]), np.float32)
         pack[0, : len(windows)] = windows
         wins = store.scatter_rows(torch.zeros(pack.shape, device=dev),
-                                  pack, [0])
+                                  pack, [0], mesh=mesh)
     return wins[0]
+
+
+def _mesh_pad(w_pad: int, mesh, batch_size: int) -> int:
+    """``w_pad`` grown by ``batch_size`` steps to a multiple of the mesh
+    size (``:625-630``); the trainer is pad-invariant."""
+    while w_pad % mesh.size():
+        w_pad += batch_size
+    return w_pad
+
+
+def _resolve_scan_backend(mesh, epochs: int, batch_size: int, params, feat: int,
+                          w_pad: int) -> str:
+    """The measured choice between the replicated route (``'single'``, K6
+    on every rank) and the sharded one (``'sharded'``), keyed per (card,
+    world size) as ``streamz_tpu/app/device_loop.py:330-424`` keys it.
+    Each candidate runs one synthetic dispatch of ``PROBE_FILES`` files at
+    this run's leading bucket on fresh copies of the parameters, after one
+    file to warm it; every rank probes, and the times are all-reduced to
+    their maximum, so every rank decides alike.  Without the card, across
+    hosts or with probing off the default is ``'sharded'``, as in JAX."""
+    n_dev = mesh.size()
+    dev = comm.mesh_device(mesh)
+    capacity = int(params["b3"].shape[0])
+    h2 = int(params["w3"].shape[0])
+
+    def make_probe(sharded: bool):
+        def probe() -> float:
+            wp = _mesh_pad(w_pad, mesh, batch_size) if sharded else w_pad
+            rng = np.random.default_rng(0)
+            wins = torch.from_numpy(
+                rng.normal(0, 1, size=(PROBE_FILES, wp, feat)).astype(np.float32)).to(dev)
+            keys = prng.fold_in(prng.PRNGKey(0, device=dev),
+                                torch.arange(PROBE_FILES, device=dev))
+            zeros_cent = torch.zeros((capacity, h2), device=dev)
+            no_seed = torch.zeros((capacity,), dtype=torch.bool, device=dev)
+            max_sp = torch.tensor(2**30, dtype=torch.int32, device=dev)
+
+            def run(files: int) -> None:
+                state = ({k: v.clone() for k, v in params.items()},
+                         torch.ones((), dtype=torch.int32, device=dev),
+                         torch.zeros((capacity, h2), device=dev),
+                         torch.zeros((capacity,), device=dev))
+                outs = [_file_step(state, wins[f], min(w_pad, wp), -1, False, 0.8, 0.05,
+                                   keys[f], zeros_cent, no_seed, max_sp, 0.2, epochs,
+                                   batch_size, mesh if sharded else None)
+                        for f in range(files)]
+                torch.stack([o[1] for o in outs]).sum().item()  # waits for the losses
+
+            run(1)  # loads the kernels and warms the group
+            t0 = time.perf_counter()
+            run(PROBE_FILES)
+            return time.perf_counter() - t0
+
+        return probe
+
+    return autotune.measured_choice(
+        f"discovery_scan_{n_dev}dev",
+        {"single": make_probe(False), "sharded": make_probe(True)},
+        default="sharded",
+        versions={"single": _cuda_build.source_hash("file_train")},
+        mesh=mesh,
+    )
 
 
 def run_incremental_device(
@@ -159,6 +279,7 @@ def run_incremental_device(
     max_speakers: Optional[int],
     show_progress: bool = True,
     device_store: Optional[DeviceFeatureStore] = None,
+    mesh=None,
 ):
     """Run the loop over the files in list order on the net's device.
 
@@ -166,8 +287,11 @@ def run_incremental_device(
     margins)`` and mutates ``net`` and the labels in ``train_files`` as the
     JAX package's loop does.  ``margins[k]`` says how far processed file
     k's similarities lay from another label (+inf where none decided it).
-    ``device_store`` (path-keyed, built from this ``feature_map``) feeds
-    the files' windows on the device.
+    ``device_store`` (path-keyed, built from this ``feature_map`` under
+    this call's ``mesh``) feeds the files' windows on the device.  Under a
+    ``mesh`` of two or more ranks every rank calls this with the same
+    arguments; the files' windows are split over the ranks on the sharded
+    route (see the module docstring).
     """
     jobs = []  # (file index, path, label, windows)
     for i, (path, label) in enumerate(train_files):
@@ -186,6 +310,9 @@ def run_incremental_device(
     }
     if not jobs:
         return 0.0, 0, {}, seed_embeddings, []
+    batch_size = int(batch_size)
+    buckets = [config.next_pow2(-(-len(w) // batch_size)) * batch_size
+               for _, _, _, w in jobs]
 
     # Pre-size capacity: every unlabelled file could spawn a class, and
     # explicit labels must be addressable.
@@ -214,6 +341,18 @@ def run_incremental_device(
     state = (params, ns, run_sum, run_cnt)
     max_sp_d = torch.tensor(max_sp, dtype=torch.int32, device=dev)
     keys = prng.fold_in(_fresh_key(device=dev), torch.arange(len(jobs), device=dev))
+
+    sharded = mesh is not None and mesh.size() > 1 and (
+        scan_forced_sharded(mesh) if "STREAMZ_SHARD_DISCOVERY" in os.environ
+        else _resolve_scan_backend(mesh, int(epochs), batch_size, params,
+                                   int(jobs[0][3].shape[1]), buckets[0]) == "sharded")
+    if device_store is not None and device_store.mesh != mesh:
+        # Built under another mesh than this loop's: its rows cannot be
+        # gathered here.  Say so: the store's saving would otherwise
+        # vanish silently.
+        print("discovery loop: ingest feature store built under a different "
+              "sharding; falling back to host-packed chunks", file=sys.stderr)
+        device_store = None
     if device_store is None:
         # Every file's windows in one upload: a copy from pageable host
         # memory waits for the device, so a copy per file would wait on
@@ -226,12 +365,12 @@ def run_incremental_device(
         progress(jobs, desc="incremental", enabled=show_progress)
     ):
         n = len(windows)
-        w_pad = config.next_pow2(-(-n // batch_size)) * batch_size
+        w_pad = _mesh_pad(buckets[k], mesh, batch_size) if sharded else buckets[k]
         if device_store is None:
             padded = torch.zeros((w_pad, windows.shape[1]), device=dev)
             padded[:n] = flat[starts[k]:starts[k] + n]
         else:
-            padded = _store_windows(device_store, path, windows, w_pad, dev)
+            padded = _store_windows(device_store, path, windows, w_pad, dev, mesh)
         burn = k < burn_in_limit
         outs.append(_file_step(
             state, padded, n,
@@ -239,7 +378,7 @@ def run_incremental_device(
             0.5 if burn else conf_threshold,
             config.LR_EARLY if k < config.LR_SWITCH_COUNT else config.LR_LATE,
             keys[k], seed_cent_d, seed_mask_d, max_sp_d, dropout, epochs,
-            batch_size,
+            batch_size, mesh if sharded else None,
         ))
 
     # The one synchronization: fetch everything at once.

@@ -20,7 +20,6 @@ instead of spawning a class.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -74,21 +73,18 @@ def run_incremental(
     """Mutates ``net`` and the labels inside ``train_files``; returns stats.
     On CUDA each file trains in one K6 launch; with ``device_store`` its
     windows are gathered on the device.  Under a ``mesh`` of two or more
-    ranks the loop runs replicated on every rank; ``STREAMZ_SHARD_DISCOVERY``
-    set to anything but ``"0"`` asks for the JAX package's sharded scan,
-    which is not ported, and raises."""
-    shard = os.environ.get("STREAMZ_SHARD_DISCOVERY")
-    if mesh is not None and mesh.size() > 1 and shard not in (None, "0"):
-        raise NotImplementedError(
-            f"STREAMZ_SHARD_DISCOVERY={shard!r} asks for the sharded discovery "
-            "scan, which streamz_tpu_torch does not port yet; unset it (or set "
-            "it to 0) to run the discovery loop replicated on every rank")
+    ranks the loop runs on every rank, sharded or replicated
+    (:mod:`streamz_tpu_torch.app.device_loop`; ``STREAMZ_SHARD_DISCOVERY``
+    forces either route, unset the choice is measured).  The JAX package
+    probes its file-train kernel here unless the sharded route is forced
+    (``streamz_tpu/app/incremental.py:95-110``); the port's file trainer is
+    K6 alone, so there is no such probe to run or skip."""
     total_loss, processed, sf, se, margins = run_incremental_device(
         net, train_files, feature_map,
         burn_in_limit=burn_in_limit, conf_threshold=conf_threshold,
         dropout=dropout, batch_size=batch_size, epochs=epochs,
         max_speakers=max_speakers, show_progress=show_progress,
-        device_store=device_store,
+        device_store=device_store, mesh=mesh,
     )
     return IncrementalResult(total_loss=total_loss, processed=processed,
                              speaker_features=sf, speaker_embeddings=se,

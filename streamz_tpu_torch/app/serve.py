@@ -1,12 +1,16 @@
 """Multi-stream batched serving: N concurrent live streams in one dispatch.
 
-The port of ``streamz_tpu/app/serve.py`` on one device.  Its multi-host
-guard is ported: in a multi-process run (a process group of two or more
-ranks) the identifier refuses, as the JAX package does on more than one
-host, and serving runs one server per process behind
-:mod:`streamz_tpu_torch.app.fleet`.  Its ``mesh`` argument, slot-sharding
-one process's identifier over several cards, is not ported yet.  A single
-hop-400 stream keeps the
+The port of ``streamz_tpu/app/serve.py``.  Its multi-host guard is ported:
+in a multi-process run (a process group of two or more ranks) the
+identifier refuses, as the JAX package does on more than one host, and
+serving runs one server per process behind
+:mod:`streamz_tpu_torch.app.fleet`.  Its ``mesh`` argument shards the slot
+axis over several devices of the one process
+(:class:`streamz_tpu_torch.parallel.mesh.LocalMesh`,
+``streamz_tpu/app/serve.py:130-200``): each device holds a contiguous
+shard of the slots' carry, a replica of the parameters and of the G.711
+tables, and every tick launches each device's step before reading any.
+A single hop-400 stream keeps the
 card a fraction of a percent busy, so serving batches many independent
 streams into every dispatch: the streaming step of
 :mod:`streamz_tpu_torch.app.stream` over a leading slot axis, one dispatch
@@ -40,6 +44,7 @@ from streamz_tpu_torch.app.stream import (
 from streamz_tpu_torch.dsp.mfcc import _to_f32
 from streamz_tpu_torch.io import g711
 from streamz_tpu_torch.parallel import comm
+from streamz_tpu_torch.parallel.mesh import LocalMesh
 
 _BLOCK = config.HOP_SIZE
 
@@ -68,6 +73,15 @@ def step_u8(params, carry, codes_u8, n_new, num_speakers, table):
     return stream_step(params, carry, _linear_to_f32(lin), n_new, num_speakers)
 
 
+class _Shard:
+    """The slots ``[lo, hi)`` on one device: their carry and staging."""
+
+    def __init__(self, device: torch.device, lo: int, hi: int, capacity: int, k: int):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.carry = zero_carry(hi - lo, capacity, device)
+        self.stage = Staging(device, hi - lo, k)
+
+
 class MultiStreamIdentifier:
     """Serve ``n_streams`` concurrent live identification streams batched.
 
@@ -80,7 +94,12 @@ class MultiStreamIdentifier:
     >>> srv.close(sid)                    # slot becomes reusable
 
     Runs on the model's device; the carry, the slot zeroing and the slot
-    extraction for ``finalize`` stay there.
+    extraction for ``finalize`` stay there.  With ``mesh`` (a
+    :class:`LocalMesh`, or a sequence of devices) the slots are padded to a
+    multiple of its size and device ``d`` holds the contiguous slots
+    ``[d*S/n, (d+1)*S/n)``; ``n_streams`` stays the admission bound, so
+    ``open()`` never hands out a padding slot.  A verdict does not depend
+    on the sharding: every slot's step is its own.
     """
 
     def __init__(
@@ -89,6 +108,7 @@ class MultiStreamIdentifier:
         n_streams: int,
         threshold: float = config.DEFAULT_CONF_THRESHOLD,
         block_batch: int = 16,
+        mesh=None,
     ):
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
@@ -101,20 +121,30 @@ class MultiStreamIdentifier:
                 "`python -m streamz_tpu_torch.app.fleet --checkpoint m.npz` per "
                 "host + FleetClient round-robin in front)"
             )
+        if mesh is not None and not isinstance(mesh, LocalMesh):
+            mesh = LocalMesh(mesh)
         self.net = net
         self.threshold = float(threshold)
         self.k = int(block_batch)
-        self.n_streams = self.n_slots = int(n_streams)
-        self.device = net.device
+        self.mesh = mesh
+        devices = (net.device,) if mesh is None else mesh.devices
+        n_dev = len(devices)
+        # n_streams is the admission bound; n_slots pads it to fill every
+        # device's shard (streamz_tpu/app/serve.py:158-170).
+        self.n_streams = int(n_streams)
+        self.n_slots = -(-self.n_streams // n_dev) * n_dev
+        self._per = self.n_slots // n_dev
+        self.device = devices[0]
         S = self.n_slots
         self._step, self._step_i16, self._step_u8 = stream_step, step_i16, step_u8
-        self._carry = zero_carry(S, net.capacity, self.device)
-        self._stage = Staging(self.device, S, self.k)
+        self._shards = [_Shard(d, i * self._per, (i + 1) * self._per, net.capacity, self.k)
+                        for i, d in enumerate(devices)]
+        self._replicas: Dict[torch.device, dict] = {}
         # host state per slot; _renc tags a uint8 remainder with its G.711
         # encoding ('ulaw' | 'alaw'), None for linear PCM remainders.
         self._rem: List[np.ndarray] = [np.zeros((0,), np.float32) for _ in range(S)]
         self._renc: List[Optional[str]] = [None] * S
-        self._tables: Dict[str, torch.Tensor] = {}
+        self._tables: Dict[Tuple[str, torch.device], torch.Tensor] = {}
         self._open = [False] * S
         self._final: Dict[int, Optional[Tuple[int, float]]] = {}
         # observability counters (stats())
@@ -126,38 +156,68 @@ class MultiStreamIdentifier:
         # current() from a per-slot device readback.
         self._vcache: Optional[np.ndarray] = None
 
-    def _table(self, enc: str) -> torch.Tensor:
-        """Device-resident G.711 decode table."""
-        tab = self._tables.get(enc)
+    @property
+    def _carry(self):
+        """The first shard's carry: every slot's without a mesh."""
+        return self._shards[0].carry
+
+    @property
+    def _stage(self) -> Staging:
+        return self._shards[0].stage
+
+    def _shard(self, sid: int) -> Tuple[_Shard, int]:
+        """A slot's shard and its row there."""
+        sh = self._shards[sid // self._per]
+        return sh, sid - sh.lo
+
+    def _params(self, dev: torch.device):
+        """The model's parameters on ``dev``: its own where it lives, else a
+        replica made once per model."""
+        params = self.net.params
+        if dev == self.net.device:
+            return params
+        rep = self._replicas.get(dev)
+        if rep is None:
+            rep = self._replicas[dev] = {k: v.to(dev) for k, v in params.items()}
+        return rep
+
+    def _table(self, enc: str, dev: Optional[torch.device] = None) -> torch.Tensor:
+        """The G.711 decode table on ``dev`` (the first device by default)."""
+        dev = self.device if dev is None else dev
+        tab = self._tables.get((enc, dev))
         if tab is None:
-            tab = torch.as_tensor(g711.TABLES[enc][0], device=self.device)
-            self._tables[enc] = tab
+            tab = torch.as_tensor(g711.TABLES[enc][0], device=dev)
+            self._tables[enc, dev] = tab
         return tab
 
     def warm_up(self) -> None:
         """Run every wire's step and a slot's flush once on scratch state and
-        wait for them: a fresh process loads its kernels and libraries at
-        their first launch (more than a second on a card), which would
-        otherwise fall on the first stream's first verdict.  The live carry
-        and the counters are untouched."""
-        S, k, dev = self.n_slots, self.k, self.device
-        carry = zero_carry(S, self.net.capacity, dev)
-        n_new = torch.zeros((S,), dtype=torch.int32, device=dev)
-        params, ns = self.net.params, self.net.num_speakers
-        with torch.no_grad():
-            stream_step(params, carry, torch.zeros((S, k, _BLOCK), device=dev), n_new, ns)
-            step_i16(params, carry, torch.zeros((S, k, _BLOCK), dtype=torch.int16,
-                                                device=dev), n_new, ns)
-            step_u8(params, carry, torch.zeros((S, k, _BLOCK), dtype=torch.uint8, device=dev),
-                    n_new, ns, self._table("ulaw"))
-            votes, count, _, _ = finalize_step(params, tuple(c[:1] for c in carry), ns)
-        packed_votes(votes[0], count[0])  # waits for all of it
-        packed_votes(carry[4], carry[6])
+        wait for them, on every device: a fresh process loads its kernels
+        and libraries at their first launch (more than a second on a card),
+        which would otherwise fall on the first stream's first verdict.  The
+        live carry and the counters are untouched."""
+        k, ns = self.k, self.net.num_speakers
+        for sh in self._shards:
+            S, dev = sh.hi - sh.lo, sh.device
+            params = self._params(dev)
+            carry = zero_carry(S, self.net.capacity, dev)
+            n_new = torch.zeros((S,), dtype=torch.int32, device=dev)
+            with torch.no_grad():
+                stream_step(params, carry, torch.zeros((S, k, _BLOCK), device=dev), n_new, ns)
+                step_i16(params, carry, torch.zeros((S, k, _BLOCK), dtype=torch.int16,
+                                                    device=dev), n_new, ns)
+                step_u8(params, carry, torch.zeros((S, k, _BLOCK), dtype=torch.uint8,
+                                                   device=dev), n_new, ns,
+                        self._table("ulaw", dev))
+                votes, count, _, _ = finalize_step(params, tuple(c[:1] for c in carry), ns)
+            packed_votes(votes[0], count[0])  # waits for all of it
+            packed_votes(carry[4], carry[6])
 
     # -- slot lifecycle ------------------------------------------------------
 
     def open(self) -> int:
-        """Claim a free slot and return its stream id."""
+        """Claim a free slot and return its stream id (only the configured
+        ``n_streams`` are admissible; padding slots exist for shape)."""
         for sid in range(self.n_streams):
             if not self._open[sid]:
                 self._open[sid] = True
@@ -173,8 +233,9 @@ class MultiStreamIdentifier:
         self._final.pop(sid, None)
         self._rem[sid] = np.zeros((0,), np.float32)
         self._renc[sid] = None
-        for c in self._carry:
-            c[sid] = 0
+        sh, row = self._shard(sid)
+        for c in sh.carry:
+            c[row] = 0
         if self._vcache is not None:
             self._vcache[sid] = 0.0  # mirror the zeroed row; cache stays valid
 
@@ -192,8 +253,10 @@ class MultiStreamIdentifier:
         pad = check_capacity_growth(self.net.capacity, net.capacity)
         self._vcache = None  # capacity/verdict basis may change
         if pad:
-            self._carry = grow_vote_carry(self._carry, pad)
+            for sh in self._shards:
+                sh.carry = grow_vote_carry(sh.carry, pad)
         self.net = net
+        self._replicas = {}
 
     # -- feeding -------------------------------------------------------------
 
@@ -267,7 +330,10 @@ class MultiStreamIdentifier:
 
         Each dispatch drains up to ``block_batch`` hop blocks per slot; with
         ``drain`` (default) dispatches repeat until no slot holds a full
-        block.  Returns the number of dispatches issued.
+        block.  Under a mesh a dispatch stages every slot's blocks on the
+        host once, copies each device its shard's rows and launches every
+        device's step before reading any.  Returns the number of
+        dispatches issued.
         """
         block = config.HOP_SIZE
         S, k = self.n_slots, self.k
@@ -300,8 +366,9 @@ class MultiStreamIdentifier:
                 self._rem[sid].dtype != np.float32 for sid in live
             )
             dtype = np.uint8 if wire_u8 else np.int16 if wire_i16 else np.float32
-            host_counts, blocks = self._stage.host(dtype)
-            host_counts[:] = counts
+            views = [sh.stage.host(dtype) for sh in self._shards]
+            for sh, (host_counts, _) in zip(self._shards, views):
+                host_counts[:] = counts[sh.lo:sh.hi]
             for sid in live:
                 nb = int(counts[sid])
                 take = nb * block
@@ -310,21 +377,24 @@ class MultiStreamIdentifier:
                     chunk = g711.decode(chunk, self._renc[sid])
                 if dtype == np.float32:
                     chunk = _to_f32(chunk)
-                blocks[sid, :nb] = chunk.reshape(nb, block)
+                views[sid // self._per][1][sid % self._per, :nb] = chunk.reshape(nb, block)
                 self._rem[sid] = self._rem[sid][take:]
-            xn, xb = self._stage.ship()
-            params, ns = self.net.params, self.net.num_speakers
+            ns = self.net.num_speakers
             with torch.no_grad():
-                if wire_u8:
-                    self._carry, _, _ = self._step_u8(
-                        params, self._carry, xb, xn, ns, self._table(next(iter(tags))))
-                else:
-                    step = self._step_i16 if wire_i16 else self._step
-                    self._carry, _, _ = step(params, self._carry, xb, xn, ns)
+                for sh in self._shards:  # every launch before any read
+                    xn, xb = sh.stage.ship()
+                    params = self._params(sh.device)
+                    if wire_u8:
+                        sh.carry, _, _ = self._step_u8(
+                            params, sh.carry, xb, xn, ns,
+                            self._table(next(iter(tags)), sh.device))
+                    else:
+                        step = self._step_i16 if wire_i16 else self._step
+                        sh.carry, _, _ = step(params, sh.carry, xb, xn, ns)
             dispatches += 1
             self._vcache = None  # carry advanced; snapshot is stale
             self._n_dispatches += 1
-            self._bytes_shipped += blocks.nbytes + counts.nbytes
+            self._bytes_shipped += sum(b.nbytes for _, b in views) + counts.nbytes
             self._wire_counts["u8" if wire_u8 else "i16" if wire_i16 else "f32"] += 1
             if not drain:
                 return dispatches
@@ -335,12 +405,13 @@ class MultiStreamIdentifier:
         return vote_verdict(votes, count, self.net.output_size(), self.threshold)
 
     def refresh_verdicts(self) -> None:
-        """Pull every slot's rolling-verdict inputs to the host in ONE
-        device-to-host copy of ``[S, capacity + 1]``; until the carry next
-        advances, ``current()`` is served from this snapshot.  Votes change
-        only at dispatches, so a post-tick snapshot is exact until the next
-        working tick."""
-        self._vcache = packed_votes(self._carry[4], self._carry[6])
+        """Pull every slot's rolling-verdict inputs to the host, one
+        device-to-host copy of ``[slots, capacity + 1]`` per device, merged
+        in slot order; until the carry next advances, ``current()`` is
+        served from this snapshot.  Votes change only at dispatches, so a
+        post-tick snapshot is exact until the next working tick."""
+        self._vcache = np.concatenate([packed_votes(sh.carry[4], sh.carry[6])
+                                       for sh in self._shards])
 
     def current(self, sid: int) -> Optional[Tuple[int, float]]:
         """Rolling identification for one stream (finalized frames so far)."""
@@ -350,7 +421,8 @@ class MultiStreamIdentifier:
         if self._vcache is not None:
             vc = self._vcache[sid]
         else:
-            vc = packed_votes(self._carry[4][sid], self._carry[6][sid])
+            sh, row = self._shard(sid)
+            vc = packed_votes(sh.carry[4][row], sh.carry[6][row])
         return self._verdict(vc[:-1], float(vc[-1]))
 
     def finalize(self, sid: int) -> Optional[Tuple[int, float]]:
@@ -361,9 +433,11 @@ class MultiStreamIdentifier:
         if sid in self._final:
             return self._final[sid]
         self.tick()
-        slot = tuple(c[sid:sid + 1] for c in self._carry)  # on the device
+        sh, row = self._shard(sid)
+        slot = tuple(c[row:row + 1] for c in sh.carry)  # on the device
         with torch.no_grad():
-            votes, count, _, _ = finalize_step(self.net.params, slot, self.net.num_speakers)
+            votes, count, _, _ = finalize_step(self._params(sh.device), slot,
+                                               self.net.num_speakers)
         vc = packed_votes(votes[0], count[0])
         res = self._verdict(vc[:-1], float(vc[-1]))
         self._final[sid] = res

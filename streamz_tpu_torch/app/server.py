@@ -143,7 +143,9 @@ class SpeakerServer:
     One TCP connection is one stream slot, claimed on accept and released on
     disconnect.  ``n_streams`` bounds the fleet; an at-capacity connect
     receives an ERROR frame and is closed.  The server runs on the model's
-    device (``self.device``); reloads load onto it.
+    device (``self.device``); reloads load onto it.  ``mesh`` (a
+    ``LocalMesh``) shards the identifier's slots over several devices of
+    this process (``streamz_tpu/app/server.py:138-150``).
     """
 
     def __init__(
@@ -159,9 +161,11 @@ class SpeakerServer:
         watch_interval: float = 1.0,
         max_buffered_samples: int = 30 * config.DEFAULT_SAMPLE_RATE,
         idle_timeout: Optional[float] = None,
+        mesh=None,
     ):
         self.ident = MultiStreamIdentifier(
-            net, n_streams=n_streams, threshold=threshold, block_batch=block_batch)
+            net, n_streams=n_streams, threshold=threshold, block_batch=block_batch,
+            mesh=mesh)
         self.device = net.device
         self._host, self._requested_port = host, int(port)
         self.max_buffered_samples = int(max_buffered_samples)

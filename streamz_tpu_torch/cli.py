@@ -54,7 +54,10 @@ daemon's wire protocol) on ``model.npz``: ``--serve-streams`` concurrent
 streams (default 64) batched into shared device dispatches, at most
 ``--serve-max-buffer`` seconds of audio queued per stream (default 30),
 connections silent for ``--serve-idle-timeout`` seconds dropped (default
-off), and the model hot-swapped whenever ``model.npz`` changes.
+off), and the model hot-swapped whenever ``model.npz`` changes.  On a host
+with several cards the one serving process shards its stream slots over
+every card it sees (``parallel.mesh.local_mesh``; ``STREAMZ_TPU_MESH=0``
+keeps it on one).
 
 Every mode runs on ``cuda`` unless ``--device cpu`` is given, and fails
 when CUDA is missing rather than falling back to the CPU.  On the card the
@@ -75,9 +78,13 @@ under ``--device cpu``), and the batched stages run data-parallel over a
 mesh of every rank (``streamz_tpu/cli.py:211-239``): ingest's frontend and
 the embedding batches shard their clip axis, corpus training shards every
 step and all-reduces the gradient sums, long clips shard their window
-axis.  Under a mesh the frontend takes its static default (no probe), the
-device store is off, and the discovery loop runs replicated on every rank.
-Every rank reads the same files and writes its own working directory's
+axis.  Under a mesh the frontend takes its static default (no probe); the
+device store holds each rank's shard of the frontend's outputs when every
+rank runs on this host (off across hosts, ``streamz_tpu/cli.py:129-135``);
+and the discovery loop runs on every rank, its windows sharded over the
+ranks or replicated, as a measurement on the card decides
+(``STREAMZ_SHARD_DISCOVERY`` forces either; without a card the sharded
+route).  Every rank reads the same files and writes its own working directory's
 ``model.npz`` and lists, with the same labels as a single-process run.
 """
 
@@ -176,9 +183,9 @@ def build_feature_map(
 
     Returns ``(feature_map, store)``, ``store`` a path-keyed
     :class:`DeviceFeatureStore` of the frontend's device outputs for the
-    consumers on the device, or None where there is none: the ``'numpy'``
-    backend, a mesh, or ``STREAMZ_STORE_MAX_MB`` (default 4096) at 0 or
-    less.
+    consumers on the device (under ``mesh``, this rank's shards), or None
+    where there is none: the ``'numpy'`` backend, a mesh across hosts, or
+    ``STREAMZ_STORE_MAX_MB`` (default 4096) at 0 or less.
     ``store_paths`` keeps only those clips in the store (``--eval`` pins
     only its targets, the only rows it gathers); the rest are extracted in
     a separate call, so that no bucket of theirs stays resident.
@@ -189,8 +196,9 @@ def build_feature_map(
         cap_mb = float(os.environ.get("STREAMZ_STORE_MAX_MB", "4096"))
     except ValueError:
         cap_mb = 4096.0
-    store = (DeviceFeatureStore(max_bytes=int(cap_mb * 1e6))
-             if extractor.backend != "numpy" and cap_mb > 0 and mesh is None else None)
+    store = (DeviceFeatureStore(mesh=mesh, max_bytes=int(cap_mb * 1e6))
+             if extractor.backend != "numpy" and cap_mb > 0 and comm.single_host()
+             else None)
     with timer.phase("features"):
         if store is not None and store_paths is not None:
             kept = [i for i, (p, _) in enumerate(resampled) if p in store_paths]
@@ -198,7 +206,8 @@ def build_feature_map(
             feats: List = [None] * len(resampled)
             for idxs, st in ((rest, None), (kept, store)):
                 if idxs:
-                    got = extractor.extract_batch([resampled[i][1] for i in idxs], store=st)
+                    got = extractor.extract_batch([resampled[i][1] for i in idxs],
+                                                  mesh=mesh, store=st)
                     for i, f in zip(idxs, got):
                         feats[i] = f
             rekey_map = {row: resampled[i][0] for row, i in enumerate(kept)}
@@ -598,8 +607,10 @@ def _serve_mode(args: List[str], threshold: float, dev) -> int:
     """``--serve [port]``: the TCP live-identification daemon on ``dev``
     (``streamz_tpu/cli.py:557-629``).  Loads ``model.npz`` (required),
     serves ``--serve-streams`` concurrent streams batched into shared
-    dispatches (:mod:`streamz_tpu_torch.app.server`), and hot-swaps the
-    model whenever the checkpoint changes."""
+    dispatches (:mod:`streamz_tpu_torch.app.server`), its slots sharded
+    over every card of the process when it sees two or more
+    (``streamz_tpu/cli.py:333``), and hot-swaps the model whenever the
+    checkpoint changes."""
     from streamz_tpu_torch.app.server import SpeakerServer
 
     port = 7071
@@ -631,6 +642,7 @@ def _serve_mode(args: List[str], threshold: float, dev) -> int:
     except Exception as e:
         print(f"Failed to load model: {e}", file=sys.stderr)
         return 1
+    mesh = meshmod.local_mesh(dev)
     srv = SpeakerServer(
         net,
         port=port,
@@ -639,10 +651,12 @@ def _serve_mode(args: List[str], threshold: float, dev) -> int:
         watch_model=config.MODEL_PATH,
         max_buffered_samples=int(max_buffer_s * config.DEFAULT_SAMPLE_RATE),
         idle_timeout=idle_timeout if idle_timeout > 0 else None,
+        mesh=mesh,
     )
     srv.start()
+    over = "" if mesh is None else f" over {mesh.size()} cards"
     print(
-        f"Serving {n_streams} stream slots on 127.0.0.1:{srv.port} "
+        f"Serving {n_streams} stream slots{over} on 127.0.0.1:{srv.port} "
         f"({net.output_size()} speakers; watching {config.MODEL_PATH})",
         flush=True,
     )

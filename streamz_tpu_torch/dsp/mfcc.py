@@ -20,7 +20,7 @@ with host-side bucketing of the padded length.
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +28,7 @@ import torch
 from streamz_tpu_torch import config
 from streamz_tpu_torch.device import resolve_device, upload
 from streamz_tpu_torch.dsp import mel as melmod
+from streamz_tpu_torch.parallel import comm
 
 _BLOCK = config.HOP_SIZE  # 400
 
@@ -177,26 +178,38 @@ def extract_features(
 class DeviceFeatureStore:
     """The frontend's outputs kept on the device, indexed for reuse there.
 
-    The port of ``streamz_tpu/dsp/mfcc.py:DeviceFeatureStore`` on one
-    device.  Its mesh arguments, for one process driving several cards, are
-    not ported yet; a multi-process run (one rank per device) turns the
-    store off, as the JAX package does on more than one host
-    (``streamz_tpu/cli.py:129-135``).  :func:`extract_features_batch`
-    computes the features on the device and returns host copies; handed a
-    store it also keeps each bucket's ``[B, W, 60]`` output alive and
-    records where each clip's rows lie, so that the discovery loop,
-    ``--eval`` and finalize assemble their batches on the device instead of
-    uploading again the features just downloaded.
+    The port of ``streamz_tpu/dsp/mfcc.py:189-401``.
+    :func:`extract_features_batch` computes the features on the device and
+    returns host copies; handed a store it also keeps each bucket's
+    ``[B, W, 60]`` output alive and records where each clip's rows lie, so
+    that the discovery loop, ``--eval`` and finalize assemble their batches
+    on the device instead of uploading again the features just downloaded.
+
+    Under a ``mesh`` (every rank building the store alike, from the
+    clip-sharded frontend) each rank keeps its own shard of every bucket,
+    the rows ``[r*per, (r+1)*per)``, and every rank's index names every
+    clip with the rank that holds it.  A gather then takes one of two
+    forms: ``rows_sharded=True`` returns this rank's rows of a batch whose
+    leading axis the mesh splits, ``rows_sharded=False`` every row on every
+    rank (the discovery loop).  Rows held where they are wanted are copied
+    on the device; the rest come in one all-gather of the rows each rank
+    holds (on the device over NCCL; gloo copies CUDA tensors through pinned
+    host memory itself), which every rank reaches or skips alike, since
+    every rank's index is the same.  A multi-process run across hosts
+    keeps no store (``streamz_tpu/cli.py:129-135``).
 
     A gathered row equals the host zero-packed row bit for bit:
     :func:`deltas_and_norm` zeroes every frame past a clip's window count.
 
-    ``max_bytes`` bounds the residency: a bucket that would push the total
-    past it is not registered, its clips miss, and every consumer packs
-    them on the host.  Call :meth:`release` when the consumers are done.
+    ``max_bytes`` bounds the residency (under a mesh, the bytes of every
+    rank's shard together, so every rank keeps or drops a bucket alike): a
+    bucket that would push the total past it is not registered, its clips
+    miss, and every consumer packs them on the host.  Call :meth:`release`
+    when the consumers are done.
     """
 
-    def __init__(self, max_bytes: Optional[int] = None):
+    def __init__(self, mesh=None, max_bytes: Optional[int] = None):
+        self.mesh = mesh
         self.max_bytes = max_bytes
         self._bytes = 0
         self._buckets: List[torch.Tensor] = []
@@ -210,9 +223,12 @@ class DeviceFeatureStore:
         }
 
     def add_bucket(self, feats_dev: torch.Tensor, keys, n_wins) -> None:
-        """Register one bucket's device output; ``keys[row]`` names the clip
-        in row ``row``.  A bucket past ``max_bytes`` is dropped."""
-        nb = feats_dev.numel() * feats_dev.element_size()
+        """Register one bucket's device output (under a mesh, this rank's
+        shard of it); ``keys[row]`` names the clip in row ``row`` of the
+        whole bucket, rows past ``len(keys)`` (mesh padding) none.  A
+        bucket past ``max_bytes`` is dropped."""
+        n_dev = 1 if self.mesh is None else self.mesh.size()
+        nb = feats_dev.numel() * feats_dev.element_size() * n_dev
         if self.max_bytes is not None and self._bytes + nb > self.max_bytes:
             self.stats["dropped_buckets"] += 1
             self.stats["dropped_bytes"] += nb
@@ -229,10 +245,12 @@ class DeviceFeatureStore:
         self._index = {mapping[k]: v for k, v in self._index.items() if k in mapping}
 
     def lookup(self, key):
-        """``(bucket_id, row, n_win)`` for a clip, or None."""
+        """``(bucket_id, row, n_win)`` for a clip, or None; ``row`` indexes
+        the whole bucket."""
         return self._index.get(key)
 
     def bucket(self, bid: int) -> torch.Tensor:
+        """A bucket's device tensor: under a mesh, this rank's shard."""
         return self._buckets[bid]
 
     def release(self) -> None:
@@ -241,20 +259,42 @@ class DeviceFeatureStore:
         self._index = {}
         self._bytes = 0
 
-    def gather(self, keys, w_pad: int, *, n_rows: Optional[int] = None):
-        """All or nothing: the gathered ``[n_rows, w_pad, feat]`` tensor when
-        every key hits, else None (the caller packs the batch on the host)."""
+    def gather(self, keys, w_pad: int, *, mesh=None, rows_sharded: bool = False,
+               n_rows: Optional[int] = None):
+        """All or nothing: the gathered tensor when every key hits, else
+        None (the caller packs the batch on the host).  See
+        :meth:`gather_partial`."""
         if any(self._index.get(k) is None for k in keys):
             return None
-        return self.gather_partial(keys, w_pad, n_rows=n_rows)[0]
+        return self.gather_partial(keys, w_pad, mesh=mesh, rows_sharded=rows_sharded,
+                                   n_rows=n_rows)[0]
 
-    def gather_partial(self, keys, w_pad: int, *, n_rows: Optional[int] = None):
+    def _check_mesh(self, mesh) -> None:
+        if mesh != self.mesh:
+            raise ValueError("the store was built under another mesh than this call's")
+
+    def _holder(self, bid: int, row: int) -> Tuple[int, int]:
+        """(row of its shard, rank) holding a bucket row."""
+        if self.mesh is None:
+            return row, 0
+        per = int(self._buckets[bid].shape[0])
+        return row % per, row // per
+
+    def gather_partial(self, keys, w_pad: int, *, mesh=None, rows_sharded: bool = False,
+                       n_rows: Optional[int] = None):
         """Assemble ``[n_rows, w_pad, feat]`` on the device, row ``r``
         holding ``keys[r]``'s windows.  Returns ``(wins, missing)``:
         ``missing`` lists the ``(row, key)`` pairs not in the store, whose
         rows stay zero for :meth:`scatter_rows`; ``wins`` is None when no
         key hits.  ``w_pad`` must hold every gathered clip's window count;
-        rows past ``len(keys)`` stay zero."""
+        rows past ``len(keys)`` stay zero.
+
+        ``mesh`` must be the store's.  Under it ``rows_sharded=True``
+        returns this rank's ``n_rows / n`` rows ``[r*n_rows/n, ...)``
+        (``n_rows`` a mesh multiple, as ``parallel.mesh.pad_rows_to_mesh``
+        pads it), ``rows_sharded=False`` all of them; every rank passes the
+        same arguments."""
+        self._check_mesh(mesh)
         hits, missing = [], []
         for row, key in enumerate(keys):
             h = self._index.get(key)
@@ -266,33 +306,81 @@ class DeviceFeatureStore:
             return None, missing
         first = self._buckets[hits[0][1][0]]
         R = len(keys) if n_rows is None else int(n_rows)
-        wins = torch.zeros((R, w_pad, first.shape[2]), dtype=first.dtype,
+        n_dev, me = (1, 0) if mesh is None else (mesh.size(), comm.axis_index(mesh))
+        per = R // n_dev if rows_sharded else R  # rows each rank returns
+        if rows_sharded and R % n_dev:
+            raise ValueError(f"{R} rows do not split over {n_dev} ranks")
+        lo = me * per if rows_sharded else 0
+        wins = torch.zeros((per, w_pad, first.shape[2]), dtype=first.dtype,
                            device=first.device)
+        # (destination row, bucket, row of the holder's shard, holder)
+        place = [(row, bid, *self._holder(bid, srow)) for row, (bid, srow, _) in hits]
+        wanted = [p for p in place if lo <= p[0] < lo + per]
+        # Does some rank want a row another holds?  The same answer on
+        # every rank: every index is the same.
+        remote = n_dev > 1 and (not rows_sharded
+                                or any(who != row // per for row, _, _, who in place))
+        if not remote:
+            self._copy_rows(wins, [(row - lo, bid, src) for row, bid, src, _ in wanted],
+                            w_pad)
+            return wins, missing
+        # Every rank sends the rows it holds, in row order, padded to the
+        # most any rank holds; each takes what it wants from the gather.
+        held = [[p for p in place if p[3] == r] for r in range(n_dev)]
+        m = max(len(h) for h in held)
+        send = torch.zeros((m, w_pad, first.shape[2]), dtype=first.dtype,
+                           device=first.device)
+        self._copy_rows(send, [(j, bid, src) for j, (_, bid, src, _) in
+                               enumerate(held[me])], w_pad)
+        got = comm.all_gather(send, mesh, tiled=True)
+        slot = {p[0]: p[3] * m + j for r in range(n_dev) for j, p in enumerate(held[r])}
+        dst = [row - lo for row, _, _, _ in wanted]
+        src = [slot[row] for row, _, _, _ in wanted]
+        if dst:
+            idx = upload(np.asarray(src + dst, np.int64), wins.device)
+            wins.index_copy_(0, idx[len(src):], got.index_select(0, idx[: len(src)]))
+        return wins, missing
+
+    def _copy_rows(self, out: torch.Tensor, moves, w_pad: int) -> None:
+        """``out[d] = bucket[b][s]`` (window axis cut or zero-padded to
+        ``w_pad``) for each ``(d, b, s)`` of ``moves``, this rank's shards
+        only; one index copy per bucket."""
         groups: dict = {}
-        for row, (bid, srow, _) in hits:
+        for d, bid, s in moves:
             dsts, srcs = groups.setdefault(bid, ([], []))
-            dsts.append(row)
-            srcs.append(srow)
+            dsts.append(d)
+            srcs.append(s)
         for bid, (dsts, srcs) in groups.items():
             bucket = self._buckets[bid]
             w = min(int(bucket.shape[1]), w_pad)
             idx = upload(np.asarray(srcs + dsts, np.int64), bucket.device)
             src, dst = idx[: len(srcs)], idx[len(srcs):]
-            wins[:, :w].index_copy_(0, dst, bucket[:, :w].index_select(0, src))
-        return wins, missing
+            out[:, :w].index_copy_(0, dst, bucket[:, :w].index_select(0, src))
 
-    def scatter_rows(self, wins: torch.Tensor, rows_host: np.ndarray, dst_rows):
+    def scatter_rows(self, wins: torch.Tensor, rows_host: np.ndarray, dst_rows, *,
+                     mesh=None, rows_sharded: bool = False):
         """``wins[dst_rows[j]] = rows_host[j]`` on the device: the miss
         repair of :meth:`gather_partial`.  ``rows_host`` is the host-packed
         ``[n_miss, w_pad, feat]`` windows of the missing clips only;
-        ``stats['host_pack_bytes']`` meters its bytes."""
+        ``stats['host_pack_bytes']`` meters its bytes.  Under ``mesh`` with
+        ``rows_sharded`` the rows index the whole batch, and this rank
+        writes those of its slice (``wins`` its ``n_rows / n`` rows)."""
+        self._check_mesh(mesh)
         n = len(dst_rows)
         if n == 0:
             return wins
         self.stats["host_pack_bytes"] += int(rows_host.nbytes)
         self.stats["host_pack_rows"] += n
+        dst_rows, rows_host = list(dst_rows), np.asarray(rows_host)
+        if rows_sharded and mesh is not None:
+            lo = comm.axis_index(mesh) * wins.shape[0]
+            keep = [j for j, r in enumerate(dst_rows) if lo <= r < lo + wins.shape[0]]
+            if not keep:
+                return wins
+            dst_rows = [dst_rows[j] - lo for j in keep]
+            rows_host = rows_host[keep]
         dst = upload(np.asarray(dst_rows, np.int64), wins.device)
-        return wins.index_copy_(0, dst, upload(rows_host, wins.device))
+        return wins.index_copy_(0, dst, upload(np.ascontiguousarray(rows_host), wins.device))
 
 
 def extract_features_batch(
@@ -317,12 +405,14 @@ def extract_features_batch(
     ``LONG_CLIP_WINDOW_THRESHOLD`` windows take the PCM-halo window-sharded
     frontend instead (:mod:`streamz_tpu_torch.parallel.window_parallel`),
     through the same core's base, when ``allow_pcm_sharded`` (default: the
-    plain core only, as the JAX package's rule is).  A mesh takes no store.
+    plain core only, as the JAX package's rule is).  Under a mesh a
+    ``store`` (built under the same mesh) registers this rank's shard of
+    each bucket; clips taking the PCM-halo route are not stored, and miss.
     """
     if not clips:
         return []
-    if mesh is not None and store is not None:
-        raise ValueError("the device feature store is off under a mesh")
+    if store is not None and store.mesh != mesh:
+        raise ValueError("the store was built under another mesh than this call's")
     dev = resolve_device(device)
     if allow_pcm_sharded is None:
         allow_pcm_sharded = core is None or core is mfcc_features
@@ -354,7 +444,10 @@ def extract_features_batch(
                 )
 
                 _, (batch_p, lens_p) = pad_rows_to_mesh(mesh, batch, lens)
-                feats = fetch(core(*put_batch_sharded(mesh, batch_p, lens_p)), mesh)
+                feats_local = core(*put_batch_sharded(mesh, batch_p, lens_p))
+                if store is not None:
+                    store.add_bucket(feats_local, idxs, n_wins)
+                feats = fetch(feats_local, mesh)
             else:
                 feats_dev = core(
                     torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev)

@@ -11,8 +11,9 @@ the ReLU-h2 head with a mean (``src/lib.rs:1450-1471``) and
 power-of-two window count and padded to a power-of-two clip count, one
 call per bucket on the net's device; with the ingest stage's
 ``DeviceFeatureStore`` a bucket gathers its rows on the device, and with a
-``mesh`` each rank pools its share of a bucket's clips and the embeddings
-come back to every rank (``streamz_tpu/infer/embed.py:72-226``).
+``mesh`` each rank pools its share of a bucket's clips (gathered from the
+store's row-sharded form when one was built under the mesh) and the
+embeddings come back to every rank (``streamz_tpu/infer/embed.py:72-226``).
 """
 
 from __future__ import annotations
@@ -99,10 +100,12 @@ def _batch_pooled(
     clips are packed on the host and scattered in; a bucket with no hit is
     packed on the host whole.  The rows are the same either way, so are the
     embeddings.  With ``mesh`` the clip axis is further padded to the mesh,
-    each rank pools its slice and an all-gather returns every embedding to
-    every rank; a mesh takes no store."""
-    if mesh is not None and store is not None:
-        raise ValueError("the device feature store is off under a mesh")
+    each rank pools its slice (from the store, its rows of the store's
+    row-sharded gather) and an all-gather returns every embedding to every
+    rank.  A store built under another mesh than ``mesh`` is ignored
+    (``streamz_tpu/infer/embed.py:96-106``)."""
+    if store is not None and store.mesh != mesh:
+        store = None
     arrs = [np.asarray(c, np.float32) for c in clips]
     out: List[np.ndarray] = [None] * len(arrs)  # type: ignore[list-item]
     buckets: dict = {}
@@ -119,16 +122,20 @@ def _batch_pooled(
         lens = np.zeros((B_pad,), np.int64)
         for row, i in enumerate(idxs):
             lens[row] = len(arrs[i])
-        batch_d = None
+        batch_d = lens_d = None
         if store is not None and keys is not None:
-            batch_d, misses = store.gather_partial([keys[i] for i in idxs], n_pad,
-                                                   n_rows=B_pad)
+            lens_p = lens if mesh is None else pad_rows_to_mesh(mesh, lens)[1][0]
+            batch_d, misses = store.gather_partial(
+                [keys[i] for i in idxs], n_pad, mesh=mesh, rows_sharded=mesh is not None,
+                n_rows=len(lens_p))
+            if batch_d is not None and mesh is not None:
+                (lens_d,) = put_batch_sharded(mesh, lens_p)
             if batch_d is not None and misses:
                 pack = np.zeros((len(misses), n_pad, feat), np.float32)
                 for j, (r, _) in enumerate(misses):
                     pack[j, : lens[r]] = arrs[idxs[r]]
-                batch_d = store.scatter_rows(batch_d, pack, [r for r, _ in misses])
-        lens_d = None
+                batch_d = store.scatter_rows(batch_d, pack, [r for r, _ in misses],
+                                             mesh=mesh, rows_sharded=mesh is not None)
         if batch_d is None:
             batch = np.zeros((B_pad, n_pad, feat), np.float32)
             for row, i in enumerate(idxs):

@@ -1,6 +1,8 @@
 """Training steps with the reference's SGD semantics, in PyTorch.
 
-The port of ``streamz_tpu/nn/train.py`` (its single-device trainers).
+The port of ``streamz_tpu/nn/train.py``: its single-device trainers and
+the window-sharded per-file trainer of the discovery loop's mesh route
+(:func:`train_on_windows_sharded_impl`).
 The reference trains with a hand-written backprop whose output delta is
 exactly ``softmax(logits) - target``, including the quirk that an
 out-of-range target class gives a zero target vector
@@ -11,6 +13,10 @@ The corpus step runs K5's step form and the per-file trainer K6
 every capacity, and runs its plain formulation for CPU tensors.  The plain
 versions are ``train_kernels.corpus_grads_plain`` with ``_apply_step``, and
 ``train_windows_plain``.
+
+The window-sharded trainer is plain torch ops, as it is plain XLA in the
+JAX package: each rank computes its slice of every chunk's gradient with
+``train_kernels._mlp_grads`` and one all-reduce per chunk merges them.
 
 ``train_bits_step`` is the steganography codec's sigmoid+MSE step
 (``src/lib.rs:917-951``), plain torch as it is plain XLA in the JAX
@@ -35,8 +41,10 @@ from streamz_tpu_torch.nn.train_kernels import (
     _mlp_grads,
     _sgd,
     corpus_step_k5,
+    split_sums,
     train_windows_k6,
 )
+from streamz_tpu_torch.parallel import comm
 
 
 def train_batch(params: Params, batch: torch.Tensor, target: torch.Tensor, lr,
@@ -92,6 +100,58 @@ def train_on_windows_impl(params: Params, windows: torch.Tensor, n_valid,
                                           num_speakers, lr)
     mean = torch.where(loss_cnt > 0, loss_sum / torch.clamp(loss_cnt, min=1.0),
                        torch.zeros((), device=windows.device))
+    return params, mean
+
+
+def train_on_windows_sharded_impl(params: Params, windows: torch.Tensor, n_valid,
+                                  target_vec: torch.Tensor, num_speakers: NumSpeakers,
+                                  key: torch.Tensor, lr: float, dropout: float, *,
+                                  epochs: int, batch_size: int, mesh):
+    """:func:`train_on_windows_impl` with every chunk's gradient split over
+    the ranks of ``mesh`` (``streamz_tpu/nn/train.py:245-306``).
+
+    Every rank builds the same epoch views from the same key; rank ``r``
+    of ``n`` takes rows ``[r*rows_per, (r+1)*rows_per)`` of each chunk,
+    ``rows_per = ceil(batch_size / n)`` (a chunk is padded with weight-0
+    rows when ``n`` does not divide it), and computes their gradient sums
+    with the plain ``_mlp_grads``.  ONE all-reduce per chunk merges a flat
+    ``[dw1 | db1 | dw2 | db2 | dw3 | db3 | loss, count, 0, 0]`` buffer
+    (``train_kernels.split_sums``'s layout), then every rank applies the
+    same mean-gradient update in place, so the parameters stay
+    bit-identical on every rank.  The merged gradient equals the whole
+    chunk's up to f32 summation order.  Returns (params, mean reported loss
+    over the processed windows, a device scalar)."""
+    n_pad, feat = windows.shape
+    n_chunks = n_pad // batch_size
+    dev = windows.device
+    dropped, valid = file_epoch_views(windows, n_valid, key, dropout, epochs)
+    chunks = dropped.reshape(epochs * n_chunks, batch_size, feat)
+    masks = valid.reshape(epochs * n_chunks, batch_size)
+    n_dev = mesh.size()
+    rows_per = -(-batch_size // n_dev)
+    pad = rows_per * n_dev - batch_size
+    if pad:  # weight-0 rows for an uneven split
+        chunks = torch.nn.functional.pad(chunks, (0, 0, 0, pad))
+        masks = torch.nn.functional.pad(masks, (0, pad))
+    lo = comm.axis_index(mesh) * rows_per
+    chunks, masks = chunks[:, lo:lo + rows_per], masks[:, lo:lo + rows_per]
+    tgt = target_vec.expand(rows_per, -1)
+    zeros2 = torch.zeros((2,), device=dev)
+    loss_sum = torch.zeros((), device=dev)
+    loss_cnt = torch.zeros((), device=dev)
+    for s in range(chunks.shape[0]):
+        wmask = masks[s]
+        grads, _, probs = _mlp_grads(params, chunks[s], tgt, wmask, num_speakers)
+        report = -(tgt * torch.log(torch.clamp(probs, min=1e-12))).sum(dim=-1)
+        flat = torch.cat([*(grads[k].reshape(-1) for k in PARAM_NAMES),
+                          (report * wmask).sum().reshape(1), wmask.sum().reshape(1),
+                          zeros2])
+        grads, part, count = split_sums(params, comm.psum(flat, mesh))
+        _sgd(params, grads, count, lr)
+        loss_sum = loss_sum + part
+        loss_cnt = loss_cnt + count
+    mean = torch.where(loss_cnt > 0, loss_sum / torch.clamp(loss_cnt, min=1.0),
+                       torch.zeros((), device=dev))
     return params, mean
 
 

@@ -49,6 +49,7 @@ WINDOW_AXIS = "window"  # long-clip window-axis sharding (the CP analogue)
 DEFAULT_TIMEOUT_S = 600.0
 
 _rank_device: Optional[torch.device] = None  # set by initialize_distributed
+_single_host = True  # every rank of the group on this host
 
 
 def initialized() -> bool:
@@ -58,6 +59,12 @@ def initialized() -> bool:
 def world_size() -> int:
     """The number of ranks of the process group, 1 without one."""
     return dist.get_world_size() if initialized() else 1
+
+
+def single_host() -> bool:
+    """Whether every rank of the process group runs on this host (true
+    without a group)."""
+    return not initialized() or _single_host
 
 
 def backend() -> Optional[str]:
@@ -87,6 +94,12 @@ def psum(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=_group(mesh))
     return out
+
+
+def all_reduce_max(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """``x`` replaced in place by its elementwise maximum over the ranks."""
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group(mesh))
+    return x
 
 
 def pmean(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
@@ -207,7 +220,7 @@ def initialize_distributed(
     every collective, so a lost rank fails the others instead of hanging
     them.
     """
-    global _rank_device
+    global _rank_device, _single_host
 
     given = {
         "--coordinator": coordinator_address,
@@ -237,6 +250,7 @@ def initialize_distributed(
         init_method = f"tcp://{coordinator_address}"
     local_rank, local_world = _local_layout(coordinator_address, num_processes,
                                             process_id)
+    _single_host = local_world == num_processes
     dev = resolve_device(device)
     if dev.type == "cuda":
         n_cards = torch.cuda.device_count()
@@ -261,7 +275,8 @@ def initialize_distributed(
 
 def shutdown() -> None:
     """Destroy the process group (a no-op without one)."""
-    global _rank_device
+    global _rank_device, _single_host
     if initialized():
         dist.destroy_process_group()
     _rank_device = None
+    _single_host = True

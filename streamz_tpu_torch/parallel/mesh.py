@@ -15,12 +15,19 @@ shards back into one host array on every rank.
 
 Library functions take an explicit ``mesh`` argument; only the CLI consults
 the process-global here, so tests stay in control of sharding.
+
+One process may also hold several devices: a :class:`LocalMesh` is a
+sequence of ``torch.device`` s driven by one process, the port's
+counterpart of the JAX package's one process driving every local device.
+Its one user is the slot-sharded ``MultiStreamIdentifier``
+(``streamz_tpu/app/serve.py:130-200``); :func:`local_mesh` gives the
+serving daemon every card the process sees.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +54,37 @@ def auto_mesh() -> Optional[DeviceMesh]:
         return None
     _ACTIVE[0] = comm.make_mesh(axis=comm.DATA_AXIS)
     return _ACTIVE[0]
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` as the card it means (the current one), so that it equals
+    the device a tensor there reports."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+class LocalMesh:
+    """Devices held by one process, in order: shard ``d`` of a sharded axis
+    lives on ``devices[d]``.  A device may appear more than once (several
+    shards on one card)."""
+
+    def __init__(self, devices: Sequence):
+        self.devices = tuple(_indexed(torch.device(d)) for d in devices)
+        if not self.devices:
+            raise ValueError("a LocalMesh needs at least one device")
+
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def local_mesh(device) -> Optional[LocalMesh]:
+    """Every card this process sees, when ``device`` is a card and there are
+    two or more of them; else None.  ``STREAMZ_TPU_MESH=0`` disables it."""
+    if os.environ.get("STREAMZ_TPU_MESH", "1") == "0" or torch.device(device).type != "cuda":
+        return None
+    n = torch.cuda.device_count()
+    return LocalMesh([f"cuda:{i}" for i in range(n)]) if n > 1 else None
 
 
 def set_active_mesh(mesh: Optional[DeviceMesh]) -> None:

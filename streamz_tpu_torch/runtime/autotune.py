@@ -18,11 +18,17 @@ stored with the decision.  The frontend's K1 and K2 differ by under 3%,
 and the lower of two times alone picked one in some processes and the
 other in the next.
 
-In a multi-process run (a process group of two or more ranks) nothing is
-probed, read from a cache or written: every rank takes the static default,
-as the JAX package does on more than one host
-(``streamz_tpu/runtime/autotune.py:153-158``, ``:234-235``), so that every
-rank runs the same kernels whatever its cache holds.
+In a multi-process run (a process group of two or more ranks) a choice
+made without a ``mesh`` probes nothing and reads and writes no cache:
+every rank takes the static default, as the JAX package does on more than
+one host (``streamz_tpu/runtime/autotune.py:153-158``, ``:234-235``), so
+that every rank runs the same kernels whatever its cache holds.  A choice
+made with the ``mesh`` every rank calls it under (the discovery scan's
+route, ``streamz_tpu/app/device_loop.py:330-424``) is made by every rank
+alike, when the ranks share one host: a cached decision counts only when
+every rank holds the same one; otherwise every rank runs every probe, the
+times are all-reduced to their maximum, every rank takes the same winner,
+and rank 0 alone writes the disk cache.  Across hosts it is the default.
 
 Unlike the JAX package, a probe that raises is not skipped: a candidate
 kernel that fails to build or launch fails the run instead of quietly
@@ -142,12 +148,39 @@ def _read_probe(result: ProbeResult) -> Tuple[float, float]:
     return mid, (runs[-1] - runs[0]) / mid if mid > 0 else 0.0
 
 
+def _agreed(mesh, local: Optional[str], candidates, can_probe: bool
+            ) -> Tuple[Optional[str], bool]:
+    """Every rank's (cached choice, may probe), made one: the choice when
+    every rank holds the same candidate (else None), and whether every rank
+    may probe.  One all-gather, which every rank reaches."""
+    names = sorted(candidates)
+    mine = torch.tensor([names.index(local) if local in candidates else -1,
+                         int(can_probe)], dtype=torch.int64,
+                        device=comm.mesh_device(mesh))
+    every = comm.all_gather(mine, mesh).cpu().tolist()
+    idx = {i for i, _ in every}
+    agreed = names[idx.pop()] if len(idx) == 1 and -1 not in idx else None
+    return agreed, all(p for _, p in every)
+
+
+def _slowest(mesh, read: Dict[str, Tuple[float, float]]) -> Dict[str, Tuple[float, float]]:
+    """Each probe's (time, spread), the largest over the ranks: one
+    all-reduce."""
+    names = sorted(read)
+    vals = torch.tensor([v for n in names for v in read[n]], dtype=torch.float64,
+                        device=comm.mesh_device(mesh))
+    comm.all_reduce_max(vals, mesh)
+    vals = vals.cpu().tolist()
+    return {n: (vals[2 * i], vals[2 * i + 1]) for i, n in enumerate(names)}
+
+
 def measured_choice(
     stage: str,
     candidates: Dict[str, Callable[[], ProbeResult]],
     default: str,
     force: bool = False,
     versions: Optional[Dict[str, str]] = None,
+    mesh=None,
 ) -> str:
     """The name of the fastest candidate on this card.
 
@@ -164,35 +197,46 @@ def measured_choice(
     the spread being the largest relative run-to-run spread of any
     candidate's runs (0 for probes that return one time).  A tie keeps the
     default.  The spread is stored with the decision.
+
+    ``mesh``: a choice every rank of the mesh makes together (see the
+    module docstring); every rank must call it with the same arguments.
     """
-    if comm.world_size() > 1:
+    ranked = mesh is not None and comm.world_size() > 1
+    if comm.world_size() > 1 and not (ranked and comm.single_host()):
         return default  # before any cache lookup: every rank the same
     key = _key(stage)
     measured_set = sorted(
         f"{name}@{versions[name]}" if versions and name in versions else name
         for name in candidates
     )
+    cached = None
     if not force:
         if key in _memory:
-            return _memory[key]
-        if not on_cuda():
-            _memory[key] = default
-            return default
-        entry = _disk_get(key)
-        cached = entry.get("choice")
-        # With probing disabled, a still-valid winner of another candidate
-        # set or version beats the static default.
-        if cached in candidates and (
-            entry.get("candidates") == measured_set or probing_disabled()
-        ):
-            _memory[key] = cached
-            return cached
-    if not on_cuda() or probing_disabled():
+            cached = _memory[key]
+        elif on_cuda():
+            entry = _disk_get(key)
+            # With probing disabled, a still-valid winner of another
+            # candidate set or version beats the static default.
+            if entry.get("choice") in candidates and (
+                entry.get("candidates") == measured_set or probing_disabled()
+            ):
+                cached = entry["choice"]
+        elif not ranked:
+            cached = default
+    can_probe = on_cuda() and not probing_disabled()
+    if ranked:
+        cached, can_probe = _agreed(mesh, cached, candidates, can_probe)
+    if cached is not None:
+        _memory[key] = cached
+        return cached
+    if not can_probe:
         # Memoised, never persisted: the next probing process measures.
         _memory[key] = default
         return default
 
     read = {name: _read_probe(probe()) for name, probe in candidates.items()}
+    if ranked:
+        read = _slowest(mesh, read)
     times = {name: t for name, (t, _) in read.items()}
     best = min(times, key=times.get)
     entry = {"candidates": measured_set}
@@ -203,7 +247,8 @@ def measured_choice(
         entry["spread"] = probe_spread[key] = spread
     probe_times[key] = times
     _memory[key] = best
-    _disk_put(key, {"choice": best, **entry})
+    if not ranked or comm.axis_index(mesh) == 0:
+        _disk_put(key, {"choice": best, **entry})
     return best
 
 

@@ -4,7 +4,9 @@ The default run and then ``--eval`` on a small synthesized corpus, once as
 one process and once as two (``--coordinator 127.0.0.1:<port>
 --num-processes 2 --process-id i --device cpu``), each process in its own
 working directory holding the same files, as ``tests/test_multihost.py:116-207``
-runs the JAX CLI.  Every process of the two writes the same
+runs the JAX CLI, the discovery loop on its replicated route
+(``STREAMZ_SHARD_DISCOVERY=0``, as ``tests/test_multihost.py:106`` sets for
+the JAX CLI).  Every process of the two writes the same
 ``train_files.txt`` as the single process and prints the same labels, and
 the four metric lines of ``--eval`` are equal.  Every run has a hard
 deadline (``test_torch_dist.run_ranks``).
@@ -61,7 +63,11 @@ def runs(tmp_path_factory):
         for world, ds in dirs.items():
             flags = [] if world == 1 else ["--coordinator", "127.0.0.1:{port}",
                                            "--num-processes", str(world)]
+            # The replicated discovery loop, as tests/test_multihost.py:106
+            # keeps the JAX CLI's: without a card the measured choice's
+            # default is the sharded route (tests/test_torch_shard_scan.py).
             outs[mode, world] = run_ranks(world, lambda r, port: [
+                "env", "STREAMZ_SHARD_DISCOVERY=0",
                 sys.executable, "-m", "streamz_tpu_torch", *ARGS, *extra,
                 *(f.format(port=port) for f in flags),
                 *([] if world == 1 else ["--process-id", str(r)])],

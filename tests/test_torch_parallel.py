@@ -11,8 +11,11 @@
 - a 1-rank gloo group: the collectives, the data-parallel step and
   ``train_corpus`` over a 1-rank mesh bit for bit equal to the
   single-device route;
-- the multi-process guards: no frontend probe, no store, the
-  ``MultiStreamIdentifier`` and the sharded discovery scan refuse.
+- the multi-process guards: no frontend probe (nor any measured choice
+  across hosts), no store built without the frontend's mesh, the
+  ``MultiStreamIdentifier`` refuses; ``STREAMZ_SHARD_DISCOVERY`` under a
+  mesh of two ranks takes the sharded discovery scan, ``0`` the
+  replicated loop.
 """
 
 import numpy as np
@@ -199,7 +202,12 @@ def test_probe_and_store_are_off_under_a_mesh(monkeypatch):
     assert autotune.measured_choice("frontend_test", {"a": probe, "b": probe},
                                     default="b", force=True) == "b"
     assert autotune.cached_choice("frontend_test", "b", "plain") == "b"
-    with pytest.raises(ValueError, match="store is off under a mesh"):
+    # A choice made under a mesh is measured by every rank together, but
+    # only when every rank runs on this host.
+    monkeypatch.setattr(comm, "single_host", lambda: False)
+    assert autotune.measured_choice("frontend_test", {"a": probe, "b": probe},
+                                    default="b", force=True, mesh=_FakeMesh(2)) == "b"
+    with pytest.raises(ValueError, match="built under another mesh"):
         mfcc.extract_features_batch([np.zeros(2000, np.int16)], device="cpu",
                                     store=mfcc.DeviceFeatureStore(), mesh=_FakeMesh(2))
 
@@ -215,11 +223,20 @@ def test_multi_stream_identifier_refuses_in_a_multi_process_run(monkeypatch):
 
 @pytest.mark.parametrize("value", ["1", "spmd"])
 def test_sharded_discovery_scan_raises_not_yet_ported(monkeypatch, value):
+    """Any value but "0" now takes the sharded scan (the sharded trainer is
+    reached; ``tests/test_torch_shard_scan.py`` runs it over real ranks),
+    "0" the replicated loop."""
+    from streamz_tpu_torch.app import device_loop
     from streamz_tpu_torch.app.incremental import run_incremental
 
+    def reached(*a, **kw):
+        raise RuntimeError("the sharded trainer")
+
+    monkeypatch.setattr(device_loop, "train_on_windows_sharded_impl", reached)
+    monkeypatch.setattr(comm, "psum", lambda x, mesh: x)
     monkeypatch.setenv("STREAMZ_SHARD_DISCOVERY", value)
     net = tmodel.SpeakerNet.new(60, 32, 16, 1, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not port yet"):
+    with pytest.raises(RuntimeError, match="the sharded trainer"):
         run_incremental(net, [("a.wav", None)], {"a.wav": np.zeros((8, 60), np.float32)},
                         burn_in_limit=1, mesh=_FakeMesh(2), show_progress=False)
     monkeypatch.setenv("STREAMZ_SHARD_DISCOVERY", "0")  # the replicated loop

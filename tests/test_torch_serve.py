@@ -6,8 +6,8 @@ identifier, and so the offline pipeline, for any interleaving of feeds;
 slots are independent and reusable.  The G.711 tables and codec equal the
 JAX package's bit for bit; the u8 and i16 wires equal host decoding bit for
 bit; vote sums lie within rtol 1e-5 of the JAX server's on the same feeds
-and every verdict is the same.  (The JAX file's mesh and multi-host cases
-have no counterpart: the port serves on one device.)
+and every verdict is the same.  (The JAX file's mesh cases are in
+``tests/test_torch_serve_mesh.py``.)
 """
 
 import numpy as np
