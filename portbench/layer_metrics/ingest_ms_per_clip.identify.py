@@ -1,0 +1,8 @@
+"""Host ingest (decode, resample) per clip of an --identify batch, from
+the program's PhaseTimer."""
+
+from portbench import layers
+
+
+def read(run):
+    return layers.phase_ms_per(run, "ingest")
