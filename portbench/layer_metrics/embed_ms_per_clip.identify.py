@@ -1,0 +1,7 @@
+"""The clip embeddings per clip of an --identify batch, from the program's PhaseTimer."""
+
+from portbench import layers
+
+
+def read(run):
+    return layers.phase_ms_per(run, "embed")

@@ -32,6 +32,7 @@ from streamz_tpu_torch.nn.model import SpeakerNet
 from streamz_tpu_torch.nn.train_kernels import PoolRows, corpus_step_k5
 from streamz_tpu_torch.parallel import comm
 from streamz_tpu_torch.parallel.data_parallel import dp_step
+from streamz_tpu_torch.runtime.profiler import span
 
 
 def build_window_pool(
@@ -93,10 +94,12 @@ def train_corpus(
             if dropout > 0.0 else None)
     epoch_losses = []
     for _ in range(int(epochs)):
-        order[:n].copy_(staged(rng.permutation(n).astype(np.int32), dev), non_blocking=True)
-        if keep is not None:
-            drawn = rng.random((n, pool_x.shape[1]), dtype=np.float32) >= dropout
-            keep.copy_(staged(drawn.view(np.uint8), dev), non_blocking=True)
+        with span("corpus.draws"):
+            order[:n].copy_(staged(rng.permutation(n).astype(np.int32), dev),
+                            non_blocking=True)
+            if keep is not None:
+                drawn = rng.random((n, pool_x.shape[1]), dtype=np.float32) >= dropout
+                keep.copy_(staged(drawn.view(np.uint8), dev), non_blocking=True)
         step_losses = []
         for s in range(steps):
             if mesh is None:

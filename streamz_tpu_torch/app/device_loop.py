@@ -85,6 +85,7 @@ from streamz_tpu_torch.nn.model import SpeakerNet, forward_embedding
 from streamz_tpu_torch.nn.train import train_on_windows_impl, train_on_windows_sharded_impl
 from streamz_tpu_torch.parallel import comm
 from streamz_tpu_torch.runtime import autotune
+from streamz_tpu_torch.runtime.profiler import span
 from streamz_tpu_torch.runtime.progress import progress
 
 # The files of the scan probe's synthetic dispatch (``:348``).
@@ -364,28 +365,30 @@ def run_incremental_device(
     for k, (_, path, label, windows) in enumerate(
         progress(jobs, desc="incremental", enabled=show_progress)
     ):
-        n = len(windows)
-        w_pad = _mesh_pad(buckets[k], mesh, batch_size) if sharded else buckets[k]
-        if device_store is None:
-            padded = torch.zeros((w_pad, windows.shape[1]), device=dev)
-            padded[:n] = flat[starts[k]:starts[k] + n]
-        else:
-            padded = _store_windows(device_store, path, windows, w_pad, dev, mesh)
-        burn = k < burn_in_limit
-        outs.append(_file_step(
-            state, padded, n,
-            -1 if label is None else int(label), burn,
-            0.5 if burn else conf_threshold,
-            config.LR_EARLY if k < config.LR_SWITCH_COUNT else config.LR_LATE,
-            keys[k], seed_cent_d, seed_mask_d, max_sp_d, dropout, epochs,
-            batch_size, mesh if sharded else None,
-        ))
+        with span("discovery.file", k):
+            n = len(windows)
+            w_pad = _mesh_pad(buckets[k], mesh, batch_size) if sharded else buckets[k]
+            if device_store is None:
+                padded = torch.zeros((w_pad, windows.shape[1]), device=dev)
+                padded[:n] = flat[starts[k]:starts[k] + n]
+            else:
+                padded = _store_windows(device_store, path, windows, w_pad, dev, mesh)
+            burn = k < burn_in_limit
+            outs.append(_file_step(
+                state, padded, n,
+                -1 if label is None else int(label), burn,
+                0.5 if burn else conf_threshold,
+                config.LR_EARLY if k < config.LR_SWITCH_COUNT else config.LR_LATE,
+                keys[k], seed_cent_d, seed_mask_d, max_sp_d, dropout, epochs,
+                batch_size, mesh if sharded else None,
+            ))
 
     # The one synchronization: fetch everything at once.
-    sids = torch.stack([o[0] for o in outs]).cpu().numpy()
-    losses = torch.stack([o[1] for o in outs]).cpu().numpy()
-    embs = torch.stack([o[2] for o in outs]).cpu().numpy()
-    margins = torch.stack([o[3] for o in outs]).cpu().tolist()
+    with span("discovery.fetch"):
+        sids = torch.stack([o[0] for o in outs]).cpu().numpy()
+        losses = torch.stack([o[1] for o in outs]).cpu().numpy()
+        embs = torch.stack([o[2] for o in outs]).cpu().numpy()
+        margins = torch.stack([o[3] for o in outs]).cpu().tolist()
     net.params = params
     net.num_speakers = int(ns)
     while len(net.file_lists) < net.num_speakers:

@@ -42,6 +42,7 @@ from streamz_tpu_torch.parallel.window_parallel import (
     LONG_CLIP_WINDOW_THRESHOLD,
     extract_embedding_sharded,
 )
+from streamz_tpu_torch.runtime.profiler import span
 from streamz_tpu_torch.runtime.progress import progress
 
 
@@ -200,7 +201,8 @@ def finalize_and_save(
             f"std_sim: {std:.4f}, norm: {norm:.4f}"
         )
     net.set_embeddings(new_embeddings)
-    checkpoint.save(net, model_path)
+    with span("finalize.save"):
+        checkpoint.save(net, model_path)
     print(f"Computed {len(net.embeddings)} embeddings for {net.output_size()} speakers")
     if result.processed > 0:
         print(f"Average training loss: {result.total_loss / result.processed:.4f}")

@@ -11,7 +11,8 @@
                               [--process-id <i>]
   python -m streamz_tpu_torch --decode <out> [--checksum <hex>]
   python -m streamz_tpu_torch --identify <file>... [--threshold <v>]
-                              [--no-autotune] [--device cuda|cpu]
+                              [--no-autotune] [--profile [dir]]
+                              [--device cuda|cpu]
   python -m streamz_tpu_torch --serve [port] [--serve-streams <n>]
                               [--serve-max-buffer <seconds>]
                               [--serve-idle-timeout <seconds>]
@@ -116,7 +117,7 @@ from streamz_tpu_torch.nn import checkpoint
 from streamz_tpu_torch.nn.model import SpeakerNet
 from streamz_tpu_torch.parallel import comm
 from streamz_tpu_torch.parallel import mesh as meshmod
-from streamz_tpu_torch.runtime.profiler import PhaseTimer, trace
+from streamz_tpu_torch.runtime.profiler import PhaseTimer, span, trace
 from streamz_tpu_torch.runtime.watchdog import watchdog
 from streamz_tpu_torch.stego import codec
 
@@ -221,9 +222,10 @@ def build_feature_map(
 
 
 def main(argv: Optional[List[str]] = None, report: Optional[dict] = None) -> int:
-    """Run the CLI on ``argv``.  A default run or ``--eval`` fills
-    ``report``, when given, with ``phase_seconds`` (ingest, features, then
-    corpus, stego when it encodes, discovery and finalize, or eval),
+    """Run the CLI on ``argv``.  A default run, ``--eval`` or ``--identify``
+    fills ``report``, when given, with ``phase_seconds`` (ingest, features,
+    then corpus, stego when it encodes, discovery and finalize, or eval; for
+    ``--identify`` load, ingest, features, embed and gate),
     ``store_stats`` (the ``DeviceFeatureStore``'s, None without one), and
     for a default run ``decision_margins`` (one per processed file,
     app/device_loop.py), for ``--eval`` ``metrics``."""
@@ -350,8 +352,11 @@ def _main(args: List[str], identify_paths: List[str], device, report: Optional[d
         # unreachable because of this early return).
         return _standalone_decode(decode_path, dev)
 
+    profile = "--profile" in args
     if identify_paths:
-        return _identify_mode(identify_paths, threshold, extractor, timer, mesh)
+        with trace(profile_dir, dev):
+            return _identify_mode(identify_paths, threshold, extractor, timer,
+                                  profile=profile, mesh=mesh)
 
     if "--serve" in args:
         return _serve_mode(args, threshold, dev)
@@ -368,7 +373,6 @@ def _main(args: List[str], identify_paths: List[str], device, report: Optional[d
     audio.precache_mp3_files(train_files)
     if eval_mode:
         audio.precache_target_files(target_files)
-    profile = "--profile" in args
     with trace(profile_dir, dev):
         if eval_mode:
             return _eval_mode(train_files, target_files, eval_split, threshold,
@@ -452,8 +456,9 @@ def _train_mode(train_files, original_paths: List[str], extractor: FeatureExtrac
             finalize_and_save(net, result, feature_map=feature_map, store=store,
                               mesh=mesh)
             updated = list(zip(original_paths, (c for _, c in train_files)))
-            fl.write_train_files(config.TRAIN_FILE_LIST, updated)
-            fl.write_target_files(config.TARGET_FILE_LIST, train_files)
+            with span("finalize.save"):
+                fl.write_train_files(config.TRAIN_FILE_LIST, updated)
+                fl.write_target_files(config.TARGET_FILE_LIST, train_files)
     finally:
         if store is not None:
             store.release()  # free the card's copies of the features
@@ -545,58 +550,65 @@ def _train(train_files, feature_map, store, extractor, conf_threshold, timer, *,
 
 
 def _identify_mode(paths: List[str], threshold: float, extractor: FeatureExtractor,
-                   timer: PhaseTimer, mesh=None) -> int:
+                   timer: PhaseTimer, *, profile: bool, mesh=None) -> int:
     """One-shot identification of ``paths`` against the saved model: host
     decode/resample, the frontend (the 'auto' winner on CUDA) with its
     outputs kept on the card, mean-pooled ReLU-h2 embeddings gathered
-    there, cosine against the stored centroids, the adaptive gate."""
-    try:
-        net = checkpoint.load(config.MODEL_PATH, device=extractor.device)
-    except Exception as e:
-        print(f"Failed to load model: {e}", file=sys.stderr)
-        return 1
-    if not net.embeddings:
-        # Older checkpoints may lack stored embeddings: rebuild them from
-        # the per-speaker training file lists.
-        net.set_embeddings(compute_speaker_embeddings(net, extractor, mesh=mesh))
-    if not net.embeddings:
-        print("Model has no speaker embeddings to match against", file=sys.stderr)
-        return 1
-    print(
-        f"Loaded {config.MODEL_PATH} "
-        f"({net.output_size()} speakers, {len(net.embeddings)} embeddings)"
-    )
+    there, cosine against the stored centroids, the adaptive gate.  Its
+    phases: ``load`` (the model), ``ingest`` and ``features``, ``embed``,
+    ``gate`` (the similarities and the verdict lines)."""
+    with timer.phase("load"):
+        try:
+            net = checkpoint.load(config.MODEL_PATH, device=extractor.device)
+        except Exception as e:
+            print(f"Failed to load model: {e}", file=sys.stderr)
+            return 1
+        if not net.embeddings:
+            # Older checkpoints may lack stored embeddings: rebuild them from
+            # the per-speaker training file lists.
+            net.set_embeddings(compute_speaker_embeddings(net, extractor, mesh=mesh))
+        if not net.embeddings:
+            print("Model has no speaker embeddings to match against", file=sys.stderr)
+            return 1
+        print(
+            f"Loaded {config.MODEL_PATH} "
+            f"({net.output_size()} speakers, {len(net.embeddings)} embeddings)"
+        )
 
     feature_map, store = build_feature_map(paths, extractor, timer, mesh=mesh)
     present = [p for p in paths if p in feature_map]
-    try:
-        embeddings = batch_clip_embeddings(net, [feature_map[p] for p in present],
-                                           store=store, keys=present, mesh=mesh)
-    finally:
-        if store is not None:
-            store.release()
-    centroids = np.stack([np.asarray(m, np.float32) for m, _, _ in net.embeddings])
-    sims = (
-        cosine_matrix_many(np.stack(embeddings), centroids)
-        if present
-        else np.zeros((0, len(net.embeddings)), np.float32)
-    )
-    sims_by_path = dict(zip(present, sims))
+    with timer.phase("embed"):
+        try:
+            embeddings = batch_clip_embeddings(net, [feature_map[p] for p in present],
+                                               store=store, keys=present, mesh=mesh)
+        finally:
+            if store is not None:
+                store.release()
+    with timer.phase("gate"):
+        centroids = np.stack([np.asarray(m, np.float32) for m, _, _ in net.embeddings])
+        sims = (
+            cosine_matrix_many(np.stack(embeddings), centroids)
+            if present
+            else np.zeros((0, len(net.embeddings)), np.float32)
+        )
+        sims_by_path = dict(zip(present, sims))
 
-    for p in paths:
-        if p not in sims_by_path:
-            print(f"{p}: failed to load", file=sys.stderr)
-            continue
-        sim_row = sims_by_path[p]
-        sid = identify_sims_cosine(sim_row, net.embeddings, threshold)
-        best = int(np.argmax(sim_row))
-        if sid is not None:
-            print(f"{p}: speaker {sid} (similarity {float(sim_row[sid]):.3f})")
-        else:
-            print(
-                f"{p}: unknown (best similarity {float(sim_row[best]):.3f} "
-                f"to speaker {best})"
-            )
+        for p in paths:
+            if p not in sims_by_path:
+                print(f"{p}: failed to load", file=sys.stderr)
+                continue
+            sim_row = sims_by_path[p]
+            sid = identify_sims_cosine(sim_row, net.embeddings, threshold)
+            best = int(np.argmax(sim_row))
+            if sid is not None:
+                print(f"{p}: speaker {sid} (similarity {float(sim_row[sid]):.3f})")
+            else:
+                print(
+                    f"{p}: unknown (best similarity {float(sim_row[best]):.3f} "
+                    f"to speaker {best})"
+                )
+    if profile:
+        print(timer.report())
     if not present:
         print("No input file could be loaded", file=sys.stderr)
         return 1

@@ -29,6 +29,7 @@ from streamz_tpu_torch import config
 from streamz_tpu_torch.device import resolve_device, upload
 from streamz_tpu_torch.dsp import mel as melmod
 from streamz_tpu_torch.parallel import comm
+from streamz_tpu_torch.runtime.profiler import span
 
 _BLOCK = config.HOP_SIZE  # 400
 
@@ -417,7 +418,8 @@ def extract_features_batch(
     if allow_pcm_sharded is None:
         allow_pcm_sharded = core is None or core is mfcc_features
     core = core or mfcc_features
-    f32 = [_to_f32(c) for c in clips]
+    with span("features.pack"):
+        f32 = [_to_f32(c) for c in clips]
     out: List[np.ndarray] = [None] * len(clips)  # type: ignore[list-item]
 
     shard_long = allow_pcm_sharded and mesh is not None and mesh.size() > 1
@@ -431,30 +433,37 @@ def extract_features_batch(
                 continue
         buckets.setdefault(_bucket_len(len(c)), []).append(i)
     for tlen, idxs in buckets.items():
-        batch = np.zeros((len(idxs), tlen), np.float32)
-        lens = np.zeros((len(idxs),), np.int64)
-        for row, i in enumerate(idxs):
-            batch[row, : len(f32[i])] = f32[i]
-            lens[row] = len(f32[i])
-        n_wins = [window_count_host(int(n)) for n in lens]
+        with span("features.pack"):
+            batch = np.zeros((len(idxs), tlen), np.float32)
+            lens = np.zeros((len(idxs),), np.int64)
+            for row, i in enumerate(idxs):
+                batch[row, : len(f32[i])] = f32[i]
+                lens[row] = len(f32[i])
+            n_wins = [window_count_host(int(n)) for n in lens]
         with torch.inference_mode():
             if mesh is not None:
                 from streamz_tpu_torch.parallel.mesh import (
                     fetch, pad_rows_to_mesh, put_batch_sharded,
                 )
 
-                _, (batch_p, lens_p) = pad_rows_to_mesh(mesh, batch, lens)
-                feats_local = core(*put_batch_sharded(mesh, batch_p, lens_p))
+                with span("features.pack"):
+                    _, (batch_p, lens_p) = pad_rows_to_mesh(mesh, batch, lens)
+                with span("features.upload"):
+                    inputs = put_batch_sharded(mesh, batch_p, lens_p)
+                feats_local = core(*inputs)
                 if store is not None:
                     store.add_bucket(feats_local, idxs, n_wins)
-                feats = fetch(feats_local, mesh)
+                with span("features.download"):
+                    feats = fetch(feats_local, mesh)
             else:
-                feats_dev = core(
-                    torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev)
-                )
+                with span("features.upload"):
+                    inputs = (torch.from_numpy(batch).to(dev), torch.from_numpy(lens).to(dev))
+                feats_dev = core(*inputs)
                 if store is not None:
                     store.add_bucket(feats_dev, idxs, n_wins)
-                feats = feats_dev.cpu().numpy()
-        for row, i in enumerate(idxs):
-            out[i] = feats[row, : n_wins[row]].copy()
+                with span("features.download"):
+                    feats = feats_dev.cpu().numpy()
+        with span("features.unpack"):
+            for row, i in enumerate(idxs):
+                out[i] = feats[row, : n_wins[row]].copy()
     return out

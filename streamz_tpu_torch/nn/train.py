@@ -45,6 +45,7 @@ from streamz_tpu_torch.nn.train_kernels import (
     train_windows_k6,
 )
 from streamz_tpu_torch.parallel import comm
+from streamz_tpu_torch.runtime.profiler import span
 
 
 def train_batch(params: Params, batch: torch.Tensor, target: torch.Tensor, lr,
@@ -93,7 +94,8 @@ def train_on_windows_impl(params: Params, windows: torch.Tensor, n_valid,
     processed windows, a device scalar)."""
     n_pad, feat = windows.shape
     n_chunks = n_pad // batch_size
-    dropped, valid = file_epoch_views(windows, n_valid, key, dropout, epochs)
+    with span("train.draws"):
+        dropped, valid = file_epoch_views(windows, n_valid, key, dropout, epochs)
     chunks = dropped.reshape(epochs * n_chunks, batch_size, feat)
     masks = valid.reshape(epochs * n_chunks, batch_size)
     loss_sum, loss_cnt = train_windows_k6(params, chunks, masks, target_vec,
@@ -124,7 +126,8 @@ def train_on_windows_sharded_impl(params: Params, windows: torch.Tensor, n_valid
     n_pad, feat = windows.shape
     n_chunks = n_pad // batch_size
     dev = windows.device
-    dropped, valid = file_epoch_views(windows, n_valid, key, dropout, epochs)
+    with span("train.draws"):
+        dropped, valid = file_epoch_views(windows, n_valid, key, dropout, epochs)
     chunks = dropped.reshape(epochs * n_chunks, batch_size, feat)
     masks = valid.reshape(epochs * n_chunks, batch_size)
     n_dev = mesh.size()

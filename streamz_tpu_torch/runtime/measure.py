@@ -11,9 +11,6 @@ The port of ``streamz_tpu/runtime/measure.py``:
   processes (:mod:`streamz_tpu_torch.runtime.procs`) until a trivial
   computation succeeds, so a harness starts its own CUDA context only on a
   card that answers.
-- :func:`session_peak_tflops`: the 4096^3 bf16 ``torch.matmul`` rate of
-  this card now, a yardstick for utilization (not a kernel of
-  the port).
 """
 
 from __future__ import annotations
@@ -21,7 +18,6 @@ from __future__ import annotations
 import os
 import time
 
-import numpy as np
 import torch
 
 
@@ -84,16 +80,3 @@ def wait_device_healthy(max_wait_s: float | None = None) -> bool:
         time.sleep(60)
     return False
 
-
-def session_peak_tflops(iters: int = 8) -> float:
-    """The bf16 tensor-core rate of a 4096^3 ``torch.matmul`` on this card
-    now, in TFLOP/s: the least of :func:`chain_timer`'s runs (``best``), the
-    right statistic for a peak.  A card below its power limit's full rate
-    reads lower than the data sheet; this is the denominator that shows
-    it.  Raises without a card."""
-    n = 4096
-    rng = np.random.default_rng(0)
-    a, b = (torch.from_numpy(rng.normal(size=(n, n)).astype(np.float32))
-            .to("cuda", torch.bfloat16) for _ in range(2))
-    t = chain_timer(torch.matmul, a, b, iters=iters, best=True)
-    return 2 * n**3 / t / 1e12

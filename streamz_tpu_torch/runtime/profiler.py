@@ -3,10 +3,14 @@
 The reference has no profiling at all (SURVEY.md §5.1; its only
 observability is indicatif progress bars).
 
+- :func:`span`: a host range named ``streamz.<name>`` in the running
+  ``torch.profiler``, at the layer boundaries inside a phase; with no
+  profiler running it costs one flag check;
 - :class:`PhaseTimer`: wall-clock seconds per phase of the CLI (ingest,
-  features, corpus, stego, discovery, finalize, eval), each phase ending in a
-  device synchronisation on a card, so that a phase's time holds its own
-  device work and none of the phase before;
+  features, corpus, stego, discovery, finalize, eval; load, embed and gate
+  under ``--identify``), each phase ending in a device synchronisation on a
+  card, so that a phase's time holds its own device work and none of the
+  phase before; each phase is also a span of its name;
 - :func:`trace`: ``torch.profiler`` over a region, CPU activity plus CUDA
   activity on a card, written into a directory as a TensorBoard-loadable
   trace when one is given.
@@ -21,6 +25,27 @@ import time
 from typing import Dict, Iterator, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, *args):
+    """A context manager that records a host range named ``streamz.<name>``
+    into the running ``torch.profiler``, ``args`` as its inputs (kept where
+    the profiler records shapes: the item's index, where the span belongs
+    to one item of a loop), and does nothing else.
+
+    The range is a CPU operation, not a user annotation:
+    ``record_function``'s annotations get a CUDA-typed shadow on the
+    device timeline under CUDA activity, which a reader of the trace would
+    count as device work.  With no profiler running the call costs one
+    flag check and returns a shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    if args:
+        return torch._C._profiler._RecordFunctionFast("streamz." + name, args)
+    return torch._C._profiler._RecordFunctionFast("streamz." + name)
 
 
 class PhaseTimer:
@@ -36,15 +61,19 @@ class PhaseTimer:
 
     @contextlib.contextmanager
     def phase(self, name: str) -> Iterator[None]:
+        """Times the block, between a synchronisation before it and one
+        after it; the span of the same name covers the time counted, the
+        closing synchronisation included."""
         self._sync()
         start = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._sync()
-            self.phases[name] = self.phases.get(name, 0.0) + (
-                time.perf_counter() - start
-            )
+        with span(name):
+            try:
+                yield
+            finally:
+                self._sync()
+                self.phases[name] = self.phases.get(name, 0.0) + (
+                    time.perf_counter() - start
+                )
 
     def report(self) -> str:
         total = sum(self.phases.values())
