@@ -8,11 +8,19 @@ carries a hash of the sources, the flags and the compiler's version, so a
 change to any of them builds anew and a library built elsewhere is never
 mistaken for this one.  Nothing is built into the source directory.
 
-The library runs the whole per-clip ingest (decode, downmix, FFT resample)
-on a ``std::thread`` pool; ``io/audio.batch_resample`` takes it when
-:func:`available`, and its output is bit-identical to the Python thread
-pool's.  Without it, one warning names why, and ingest stays on the Python
-thread pool (identical results, slower).
+The library runs the whole per-clip ingest on a ``std::thread`` pool, in
+two passes that :func:`batch_ingest` calls in turn: decode
+(``sz_batch_decode``), then downmix and resample (``sz_batch_resample``,
+under the span ``ingest.resample`` with the number of clips it resamples;
+skipped, span and all, when no clip needs it).  The resampler
+(``resample.h``) runs each chunk's real FFTs as complex FFTs of half the
+length, planned once per rate pair: mixed-radix passes over 2, 3, 4, 5, 7
+and the other odd primes up to 31, Bluestein for a length with a larger
+prime factor; each pool thread keeps its own scratch buffers across the
+chunks and clips it takes.  ``io/audio.batch_resample`` takes the library
+when :func:`available`, and its output is bit-identical to the Python
+thread pool's.  Without it, one warning names why, and ingest stays on the
+Python thread pool (identical results, slower).
 
 The JAX package's loader reads any ``OSError`` or ``AttributeError`` from a
 found library as a stale ABI and says so; here :func:`load` records which
@@ -33,6 +41,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from streamz_tpu_torch.runtime import profiler
+
 PKG = Path(__file__).resolve().parents[1]
 SOURCE_DIR = PKG / "native"
 SOURCES = ("streamz_native.cpp", "resample.h")
@@ -41,7 +51,7 @@ CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-Wall", "-shared")
 LD_FLAGS = ("-ldl", "-pthread")
 
 # Bumped whenever the C ABI changes (exports added/removed/reshaped).
-SZ_NATIVE_VERSION = 2
+SZ_NATIVE_VERSION = 3
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -120,11 +130,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(_SzClip),
     ]
     lib.sz_batch_decode.restype = ctypes.c_int
-    lib.sz_batch_ingest.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, ctypes.POINTER(_SzClip),
+    lib.sz_batch_resample.argtypes = [
+        ctypes.POINTER(_SzClip), ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
     ]
-    lib.sz_batch_ingest.restype = ctypes.c_int
+    lib.sz_batch_resample.restype = ctypes.c_int
     lib.sz_resample_i16.argtypes = [
         ctypes.POINTER(ctypes.c_int16), ctypes.c_int64, ctypes.c_int32,
         ctypes.c_int32, ctypes.POINTER(ctypes.POINTER(ctypes.c_int16)),
@@ -232,27 +241,32 @@ def decode_file(path: str) -> Optional[Tuple[np.ndarray, int, int]]:
     return arr.astype(np.int16, copy=False), int(rate.value), int(ch.value)
 
 
-def _run_batch(paths: List[str], call) -> List[Optional[Tuple[np.ndarray, int, int]]]:
+def _require() -> ctypes.CDLL:
     lib = load()
     if lib is None:
         raise RuntimeError(f"native library unavailable: {unavailable_reason}")
+    return lib
+
+
+def _decode(lib, paths: List[str], threads: int) -> ctypes.Array:
+    """The first pass: every path decoded on the library's thread pool."""
     n = len(paths)
-    if n == 0:
-        return []
     # os.fsencode, not str.encode: a surrogate-escaped (non-UTF-8) filename
     # from os.listdir must fail only ITS clip, not the whole batch.
     c_paths = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
     clips = (_SzClip * n)()
-    call(lib, c_paths, n, clips)
-    return [_clip_to_numpy(lib, clips[i]) for i in range(n)]
+    lib.sz_batch_decode(c_paths, n, threads, clips)
+    return clips
 
 
 def batch_decode(
     paths: List[str], threads: int = 0
 ) -> List[Optional[Tuple[np.ndarray, int, int]]]:
     """Threaded native batch decode; per-path None on failure."""
-    return _run_batch(paths, lambda lib, c_paths, n, clips:
-                      lib.sz_batch_decode(c_paths, n, threads, clips))
+    lib = _require()
+    if not paths:
+        return []
+    return [_clip_to_numpy(lib, clip) for clip in _decode(lib, paths, threads)]
 
 
 def batch_ingest(
@@ -261,14 +275,27 @@ def batch_ingest(
     """Full threaded native ingest: decode → downmix → resample.
 
     Returns per-path (mono i16 at target_rate, target_rate, 1) or None.
-    The resampler is the C++ twin of :mod:`streamz_tpu_torch.dsp.resample`
-    (bit-identical i16 output)."""
+    Two passes of the library's thread pool: decode, then downmix and
+    resample (the span ``ingest.resample``, its argument the number of
+    clips resampled).  The second pass runs only where a clip needs it, and
+    its span only where a clip is resampled.  The resampler is the C++ twin
+    of :mod:`streamz_tpu_torch.dsp.resample` (bit-identical i16 output)."""
     if target_rate <= 0:
         # The C side rejects this too (a zero-output resampler plan would
         # corrupt the heap); fail loudly here with a Python-level message.
         raise ValueError(f"target_rate must be positive, got {target_rate}")
-    return _run_batch(paths, lambda lib, c_paths, n, clips:
-                      lib.sz_batch_ingest(c_paths, n, threads, target_rate, clips))
+    lib = _require()
+    if not paths:
+        return []
+    clips = _decode(lib, paths, threads)
+    decoded = [clip for clip in clips if clip.status == 0]
+    n_resample = sum(clip.rate != target_rate for clip in decoded)
+    if n_resample:
+        with profiler.span("ingest.resample", n_resample):
+            lib.sz_batch_resample(clips, len(clips), threads, target_rate)
+    elif any(clip.channels > 1 for clip in decoded):
+        lib.sz_batch_resample(clips, len(clips), threads, target_rate)  # downmix only
+    return [_clip_to_numpy(lib, clip) for clip in clips]
 
 
 def resample_i16_native(

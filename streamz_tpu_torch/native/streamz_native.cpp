@@ -284,16 +284,24 @@ int sz_resample_i16(const int16_t *x, int64_t n, int32_t fs_in, int32_t fs_out,
     return -2;
   }
   try {
-    std::vector<int16_t> y = szr::resample_i16(x, size_t(n), fs_in, fs_out);
-    // max(size,1): malloc(0) may return null, which would misreport an
-    // empty (valid) result as an allocation failure; skip the memcpy for
-    // the empty case (memcpy from a null vector data() is UB).
-    auto *mem = static_cast<int16_t *>(
-        malloc(std::max(y.size(), size_t(1)) * sizeof(int16_t)));
+    size_t len = fs_in == fs_out ? size_t(n) : szr::resampled_len(size_t(n), fs_in, fs_out);
+    // max(len,1): malloc(0) may return null, which would misreport an
+    // empty (valid) result as an allocation failure.
+    auto *mem = static_cast<int16_t *>(malloc(std::max(len, size_t(1)) * sizeof(int16_t)));
     if (!mem) return -1;
-    if (!y.empty()) memcpy(mem, y.data(), y.size() * sizeof(int16_t));
+    if (fs_in == fs_out) {
+      if (len) memcpy(mem, x, len * sizeof(int16_t));
+    } else {
+      try {
+        szr::Scratch scratch;
+        szr::resample_i16(x, size_t(n), fs_in, fs_out, mem, scratch);
+      } catch (const std::exception &) {
+        free(mem);
+        throw;
+      }
+    }
     *out = mem;
-    *out_len = static_cast<int64_t>(y.size());
+    *out_len = static_cast<int64_t>(len);
     return 0;
   } catch (const std::exception &) {
     return -3;  // bad_alloc on a huge-but-valid input: fail, don't abort
@@ -373,11 +381,14 @@ int sz_batch_decode(const char **paths, int32_t n, int32_t threads,
   return 0;
 }
 
-// Full threaded ingest: decode → downmix → resample to target_rate, all on
-// the std::thread pool — the complete load_and_resample_file pipeline
+// The second pass of the threaded ingest, after sz_batch_decode: downmix
+// each decoded clip in place and resample it to target_rate, on the
+// std::thread pool — the rest of the load_and_resample_file pipeline
 // (src/lib.rs:509-538) per clip, batched like batch_resample (:541-547).
-int sz_batch_ingest(const char **paths, int32_t n, int32_t threads,
-                    int32_t target_rate, SzClip *out) {
+// Each pool thread keeps one resampler scratch across the clips it takes.
+// Clips that failed to decode are left as they are.
+int sz_batch_resample(SzClip *clips, int32_t n, int32_t threads,
+                      int32_t target_rate) {
   if (n <= 0) return 0;
   if (target_rate <= 0) {
     // target 0 would build a zero-output resampler plan whose overlap-add
@@ -394,36 +405,39 @@ int sz_batch_ingest(const char **paths, int32_t n, int32_t threads,
   pool.reserve(threads);
   for (int t = 0; t < threads; ++t) {
     pool.emplace_back([&] {
+      szr::Scratch scratch;
       for (;;) {
         int32_t i = next.fetch_add(1);
         if (i >= n) break;
-        SzClip *clip = &out[i];
-        decode_one(paths[i], clip);
+        SzClip *clip = &clips[i];
         if (clip->status != 0) continue;
+        clip->len = downmix_raw(clip->samples, clip->len, clip->channels);
+        clip->channels = 1;
+        if (clip->rate == target_rate) continue;
         try {
-          // Downmix in place on the decode buffer (it only shrinks), then
-          // resample straight from it — one clip copy instead of two.
-          int64_t mono =
-              downmix_raw(clip->samples, clip->len, clip->channels);
-          std::vector<int16_t> res = szr::resample_i16(
-              clip->samples, size_t(mono), clip->rate, target_rate);
-          free(clip->samples);
-          clip->samples = nullptr;
-          // max(size,1): malloc(0) may return null, which would misreport
+          size_t len = szr::resampled_len(size_t(clip->len), clip->rate, target_rate);
+          // max(len,1): malloc(0) may return null, which would misreport
           // an empty (valid) clip as an allocation failure.
           auto *mem = static_cast<int16_t *>(
-              malloc(std::max(res.size(), size_t(1)) * sizeof(int16_t)));
+              malloc(std::max(len, size_t(1)) * sizeof(int16_t)));
           if (!mem) {
+            free(clip->samples);
+            clip->samples = nullptr;
             clip->status = -7;
             clip->len = 0;
             continue;
           }
-          if (!res.empty())
-            memcpy(mem, res.data(), res.size() * sizeof(int16_t));
+          try {
+            szr::resample_i16(clip->samples, size_t(clip->len), clip->rate,
+                              target_rate, mem, scratch);
+          } catch (const std::exception &) {
+            free(mem);
+            throw;
+          }
+          free(clip->samples);
           clip->samples = mem;
-          clip->len = static_cast<int64_t>(res.size());
+          clip->len = static_cast<int64_t>(len);
           clip->rate = target_rate;
-          clip->channels = 1;
         } catch (const std::exception &) {
           // bad_alloc in the resampler (huge clip under memory pressure)
           // must fail THIS clip, not std::terminate the process.
@@ -439,6 +453,6 @@ int sz_batch_ingest(const char **paths, int32_t n, int32_t threads,
   return 0;
 }
 
-int sz_version() { return 2; }
+int sz_version() { return 3; }
 
 }  // extern "C"

@@ -4,7 +4,11 @@
   ``streamz_tpu_torch/_build/``, never into a source directory.
 - ``batch_ingest`` and ``batch_resample`` are bit-identical to the Python
   thread-pool path on synthesized 8, 16, 22.05, 44.1 and 48 kHz mono and
-  stereo WAVs, and the resampler alone on raw PCM.
+  stereo WAVs and on one batch of mixed rates, lengths and channels, and
+  the resampler alone on raw PCM, at utterance lengths too and on a rate
+  whose plan takes the Bluestein fallback.
+- The port's library and the JAX package's, loaded into one process, keep
+  their own resampler plans.
 - ``tests/test_native.py``'s edge cases against the copy: truncated data,
   a zero-length data chunk, a sample rate past int32, a bad target rate,
   8-bit PCM, a non-UTF-8 file name, the native WAV writer.
@@ -84,6 +88,58 @@ def test_resampler_bit_identical(fs):
     x = np.random.default_rng(fs).normal(0, 8000, 12000).astype(np.int16)
     np.testing.assert_array_equal(native.resample_i16_native(x, fs, 44100),
                                   resample_to_44100(x, fs))
+
+
+# (rate, seconds): utterance lengths at 16 kHz, and 8.2 s at the other
+# rates the configurations and tests reach.  44099 Hz takes the Bluestein
+# fallback: its chunk's half length 44099 = 11 * 19 * 211 has a prime factor
+# above the largest radix.
+REALISTIC = [(16000, 4.0), (16000, 8.2), (16000, 20.0), (8000, 8.2), (22050, 8.2),
+             (32000, 8.2), (48000, 8.2), (44099, 2.0)]
+
+
+@pytest.mark.parametrize("fs,seconds", REALISTIC)
+def test_resampler_bit_identical_at_realistic_lengths(fs, seconds):
+    rng = np.random.default_rng(int(fs * seconds))
+    x = _tone(rng, int(fs * seconds), 1)
+    got = native.resample_i16_native(x, fs, 44100)
+    want = resample_to_44100(x, fs)
+    assert got.shape == want.shape == (len(x) * 44100 // fs,)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("threads", [1, 8])
+def test_batch_ingest_of_mixed_rates_bit_identical_to_thread_pool(tmp_path, threads):
+    """16 clips of mixed rates, lengths and channels in one batch: each pool
+    thread's scratch, reused across clips of other plans, leaks nothing
+    from one clip into the next."""
+    rng = np.random.default_rng(threads)
+    rates = [8000, 16000, 22050, 32000, 44100, 48000, 44099, 16000]
+    paths = []
+    for i in range(16):
+        rate, channels = rates[i % len(rates)], 1 + (i % 3 == 2)
+        n = int(rate * rng.uniform(0.2, 1.5))
+        p = tmp_path / f"m{i}.wav"
+        p.write_bytes(_wav_bytes(rate, channels, _tone(rng, n, channels).tobytes()))
+        paths.append(str(p))
+    got = native.batch_ingest(paths, threads=threads)
+    want = audio.batch_resample_threads(paths)
+    assert [p for p, _ in want] == paths
+    for (p, w), (samples, rate, channels) in zip(want, got):
+        assert (rate, channels) == (44100, 1)
+        np.testing.assert_array_equal(samples, w, err_msg=p)
+
+
+def test_resampler_beside_the_jax_package_library():
+    """The JAX package's library defines a resampler under the same C++
+    names; loaded into one process, the two keep their own plan caches."""
+    from streamz_tpu.io import native as jax_native
+
+    x = _tone(np.random.default_rng(12000), 30000, 1)
+    want = resample_to_44100(x, 12000)
+    if jax_native.available():
+        np.testing.assert_array_equal(jax_native.resample_i16_native(x, 12000, 44100), want)
+    np.testing.assert_array_equal(native.resample_i16_native(x, 12000, 44100), want)
 
 
 def test_wav_roundtrip_with_python_codec(tmp_path):

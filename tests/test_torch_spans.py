@@ -6,7 +6,7 @@ has no shadow on the device timeline.  With no profiler running it is a
 shared no-op.  The CLI's phases are spans of their names, and spans under
 them mark the layers inside: the frontend's pack, upload, download and
 unpack, the corpus draws, each discovery file, the file's draws, the loop's
-read-back and finalize's writes.
+read-back and finalize's writes; under ingest, the native resampler's pass.
 
 This file imports neither jax nor the JAX package: its ``cuda`` case also
 runs on a machine with a card (``python -m pytest --noconftest -m cuda
@@ -22,7 +22,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from streamz_tpu_torch import cli
-from streamz_tpu_torch.io import wav
+from streamz_tpu_torch.io import audio, native, wav
 from streamz_tpu_torch.nn import drivers
 from streamz_tpu_torch.runtime import profiler
 
@@ -176,6 +176,29 @@ def test_identify_phases_and_profile_report(trained, capsys, monkeypatch):
     traces = list((work / "traces").iterdir())
     assert len(traces) == 1 and traces[0].name.endswith(".pt.trace.json")
     assert "streamz.embed" in traces[0].read_text()
+
+
+@pytest.mark.parametrize("rates,resampled", [([16000, 16000, 44100], 2),
+                                             ([44100, 44100, 44100], 0)])
+def test_ingest_resample_span_counts_the_resampled_clips(tmp_path, rates, resampled):
+    """The native ingest's second pass, downmix and resample, is the span
+    ``ingest.resample``, its argument the number of clips it resamples; a
+    batch with none to resample skips the pass and opens no span."""
+    assert native.available(), native.unavailable_reason
+    rng = np.random.default_rng(resampled)
+    paths = [str(tmp_path / "missing.wav")]
+    for i, rate in enumerate(rates):
+        paths.append(str(tmp_path / f"r{i}.wav"))
+        wav.write_wav(paths[-1], _voice(rng, *SPEAKERS[i], seconds=0.5, rate=rate), rate)
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        out = audio.batch_resample(paths)
+    assert [p for p, _ in out] == paths[1:]
+    spans = _streamz(prof)
+    if resampled:
+        (span,) = spans["ingest.resample"]
+        assert list(span.concrete_inputs) == [resampled]
+    else:
+        assert "ingest.resample" not in spans
 
 
 @pytest.mark.cuda
