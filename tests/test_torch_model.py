@@ -1,7 +1,10 @@
 """The port's MLP and checkpoint codec (streamz_tpu_torch.nn) held against the
 JAX package on the same numpy-made weights and inputs."""
 
+import contextlib
+import io
 import os
+import warnings
 import zipfile
 
 import jax.numpy as jnp
@@ -180,3 +183,200 @@ def test_hostile_num_speakers_and_entry_cap(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="sane range"):
         tckpt.load(path, device="cpu")
 
+
+
+# ---------------------------------------------------------------------------
+# The reader's one pass: fast entries read as views into the file's bytes,
+# every other entry through np.load, the result the JAX package's bit for bit.
+# ---------------------------------------------------------------------------
+
+
+def _npy(a, version=None) -> bytes:
+    buf = io.BytesIO()
+    np.lib.format.write_array(buf, a, version=version, allow_pickle=True)
+    return buf.getvalue()
+
+
+def _reader_arrays():
+    """A small model with three output columns, a stego layer of two bits,
+    file lists and stored embeddings, in the writers' dtypes."""
+    rng = np.random.default_rng(7)
+    f32 = lambda *s: rng.normal(0, 0.5, s).astype(np.float32)  # noqa: E731
+    arrays = {"w1": f32(6, 5), "b1": f32(5), "w2": f32(5, 4), "b2": f32(4),
+              "sample_rate": np.array([16000], np.int64), "bits": np.array([16], np.int64),
+              "num_speakers": np.array([3], np.int64),
+              "speaker_embeddings": f32(3, 4), "speaker_mean_sims": f32(3),
+              "speaker_std_sims": f32(3)}
+    for i in range(3):
+        arrays[f"w3_{i + 1}"] = f32(4)
+        arrays[f"b3_{i + 1}"] = f32(1)
+        arrays[f"speaker_{i}_files"] = np.frombuffer(f"s{i}.wav\nt{i}.wav".encode(), np.uint8)
+    for i in range(2):
+        arrays[f"w4_{i + 1}"] = f32(4)
+        arrays[f"b4_{i + 1}"] = f32(1)
+    return arrays
+
+
+def _write_npz(path, arrays, deflated=(), version=None):
+    """Each array as ``<key>.npy``, stored unless its key is in ``deflated``;
+    ``version`` maps a key to its ``.npy`` format version."""
+    version = version or {}
+    with zipfile.ZipFile(path, "w") as zf:
+        for key, a in arrays.items():
+            kind = zipfile.ZIP_DEFLATED if key in deflated else zipfile.ZIP_STORED
+            zf.writestr(key + ".npy", _npy(a, version.get(key)), compress_type=kind)
+
+
+@pytest.fixture()
+def read_spans(monkeypatch):
+    """The arguments of each ``load.read`` span the port's reader opens."""
+    seen = []
+
+    def span(name, *args):
+        seen.append((name, args))
+        return contextlib.nullcontext()
+
+    monkeypatch.setattr(tckpt, "span", span)
+    return seen
+
+
+def _assert_loads_like_jax(path):
+    j = jckpt.load(path)
+    t = tckpt.load(path, device="cpu")
+    assert (t.num_speakers, t.file_lists) == (j.num_speakers, j.file_lists)
+    assert (t.sample_rate, t.bits) == (j.sample_rate, j.bits)
+    for k in tmodel.PARAM_NAMES:
+        np.testing.assert_array_equal(t.params[k].numpy(), np.asarray(j.params[k]), err_msg=k)
+    assert (t.w4 is None) == (j.w4 is None)
+    if t.w4 is not None:
+        for a, b in ((t.w4, j.w4), (t.b4, j.b4)):
+            assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+            assert a.flags.writeable and a.flags.aligned and a.flags.c_contiguous
+    assert len(t.embeddings) == len(j.embeddings)
+    for (te, tm, ts), (je, jm, js) in zip(t.embeddings, j.embeddings):
+        np.testing.assert_array_equal(te, je)
+        assert te.flags.writeable and te.flags.aligned
+        assert (tm, ts) == (jm, js)
+    return t
+
+
+@pytest.mark.parametrize("case,fallback", [
+    ("deflated", 1), ("npy_v2", 1), ("fortran_w1", 1), ("big_endian_column", 1),
+    ("int32_sample_rate", 0), ("all", 4),
+])
+def test_reader_mixes_fast_and_fallback_entries_like_jax(tmp_path, read_spans, case,
+                                                         fallback):
+    """One file of fast entries and, per case, entries np.load decodes: a
+    deflated ``w2``, a format-2.0 ``b1``, a Fortran-order ``w1``, a
+    big-endian column ``w3_2``; an int32 ``sample_rate`` is read fast."""
+    arrays = _reader_arrays()
+    deflated, version = set(), {}
+    if case in ("deflated", "all"):
+        deflated.add("w2")
+    if case in ("npy_v2", "all"):
+        version["b1"] = (2, 0)
+    if case in ("fortran_w1", "all"):
+        arrays["w1"] = np.asfortranarray(arrays["w1"])
+    if case in ("big_endian_column", "all"):
+        arrays["w3_2"] = arrays["w3_2"].astype(">f4")
+    if case in ("int32_sample_rate", "all"):
+        arrays["sample_rate"] = arrays["sample_rate"].astype(np.int32)
+    path = str(tmp_path / "m.npz")
+    _write_npz(path, arrays, deflated, version)
+    t = _assert_loads_like_jax(path)
+    assert read_spans == [("load.read", (len(arrays), fallback))]
+    np.testing.assert_array_equal(t.output_layer()[0][:, 1], arrays["w3_2"].astype(np.float32))
+    assert t.sample_rate == 16000
+
+
+def _flip_last_data_byte(data: bytes, payload: bytes) -> bytes:
+    at = data.index(payload) + len(payload) - 1
+    return data[:at] + bytes([data[at] ^ 0x10]) + data[at + 1:]
+
+
+def _longer_local_name(data: bytes, name: bytes) -> bytes:
+    at = data.index(name) - 30  # the name's first bytes in the file: its local header's
+    assert data[at:at + 4] == b"PK\x03\x04"
+    n = int.from_bytes(data[at + 26:at + 28], "little")
+    return data[:at + 26] + (n + 1).to_bytes(2, "little") + data[at + 28:]
+
+
+@pytest.mark.parametrize("fault", ["bit_flip_in_w1", "bit_flip_in_a_column", "truncated",
+                                   "local_name_length", "local_name_differs",
+                                   "short_npy_data", "pickled_entry", "column_widths_differ",
+                                   "cap_after_a_bit_flip", "cap_before_a_bit_flip"])
+def test_reader_faults_raise_as_jax_before_any_state(tmp_path, monkeypatch, fault):
+    """Each malformed file raises the JAX reader's exception, with its
+    message, and no parameter is built.  Of two faults, the one in the
+    earlier entry raises: a bit flip or an entry over the cap."""
+    arrays = _reader_arrays()
+    if fault.startswith("cap_"):
+        extra = {"extra": np.zeros(10_000, np.float32)}
+        arrays = {**extra, **arrays} if fault == "cap_before_a_bit_flip" else {**arrays, **extra}
+        monkeypatch.setenv("STREAMZ_CHECKPOINT_MAX_ENTRY_BYTES", "20000")
+    if fault == "pickled_entry":
+        arrays["speaker_1_files"] = np.array(["s1.wav"], dtype=object)
+    if fault == "column_widths_differ":
+        arrays["w3_3"] = arrays["w3_3"][:3]
+    path = tmp_path / "m.npz"
+    _write_npz(str(path), arrays)
+    data = path.read_bytes()
+    if fault in ("bit_flip_in_w1", "cap_after_a_bit_flip", "cap_before_a_bit_flip"):
+        data = _flip_last_data_byte(data, _npy(arrays["w1"]))
+    elif fault == "bit_flip_in_a_column":
+        data = _flip_last_data_byte(data, _npy(arrays["w3_2"]))
+    elif fault == "truncated":
+        data = data[:len(data) * 2 // 3]
+    elif fault == "local_name_length":
+        data = _longer_local_name(data, b"b2.npy")
+    elif fault == "local_name_differs":
+        data = data.replace(b"b2.npy", b"c2.npy", 1)
+    elif fault == "short_npy_data":
+        with zipfile.ZipFile(path, "w") as zf:
+            for key, a in arrays.items():
+                payload = _npy(a)
+                zf.writestr(key + ".npy", payload[:-4] if key == "w2" else payload)
+        data = path.read_bytes()
+    path.write_bytes(data)
+    with pytest.raises(Exception) as want:
+        jckpt.load(str(path))
+    built = []
+    monkeypatch.setattr(tckpt, "params_from_numpy", lambda *a, **k: built.append(1))
+    with pytest.raises(type(want.value)) as got:
+        tckpt.load(str(path), device="cpu")
+    assert str(got.value) == str(want.value)
+    assert built == []
+
+
+def test_reader_takes_a_bias_as_float_takes_it(tmp_path, read_spans):
+    """A signalling-NaN bias read fast comes out as ``float()`` leaves it
+    (quieted), as the JAX reader's, and no warning is raised."""
+    arrays = _reader_arrays()
+    arrays["b3_2"] = np.array([0x7F800001], np.uint32).view(np.float32)
+    arrays["b4_1"] = np.array([0x7F800002], np.uint32).view(np.float32)
+    path = str(tmp_path / "m.npz")
+    _write_npz(path, arrays)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        t = _assert_loads_like_jax(path)
+    assert read_spans == [("load.read", (len(arrays), 0))]
+    want = np.float32(float(arrays["b3_2"][0]))
+    assert t.output_layer()[1][1:2].tobytes() == np.array([want]).tobytes()
+
+
+def test_a_vox1251_schema_model_reads_every_entry_fast(tmp_path, read_spans):
+    """A model of 1,251 speakers with empty file lists and stored
+    embeddings, saved by the port: 3,763 entries, none through np.load,
+    and every array the JAX reader's."""
+    n = 1251
+    net = tmodel.SpeakerNet.new(60, 512, 256, n, seed=4, device="cpu")
+    rng = np.random.default_rng(8)
+    net.set_embeddings([(rng.normal(size=256).astype(np.float32), 0.5, 0.1)
+                        for _ in range(n)])
+    path = str(tmp_path / "model.npz")
+    tckpt.save(net, path)
+    t = _assert_loads_like_jax(path)
+    assert read_spans == [("load.read", (7 + 3 * n + 3, 0))]
+    assert t.file_lists == [[]] * n
+    for a, b in zip(t.output_layer(), net.output_layer()):
+        np.testing.assert_array_equal(a, b)
